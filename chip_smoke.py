@@ -5,30 +5,48 @@ Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It drives the port's main path -- rasterise_batch forward and its analytic
-backward on the bench scene (16 x 256^2 x 3 channels, the 512-face Gouraud
-cylinder, loss sum(pixels * weights)) -- and checks it phase by phase,
-printing one line per phase and exiting non-zero at the first failure:
+It drives the port's paths on the bench scene (16 x 256^2, the 512-face
+Gouraud cylinder, loss sum(pixels * weights)) and checks them phase by
+phase, printing one line per phase and exiting non-zero at the first
+failure:
 
   1. device: torch and CUDA versions, the card's name and power limit;
      no CUDA device is a failure (nothing runs on the CPU);
-  2. build: the four CUDA kernels, compiled from dirt_tpu_torch/csrc/;
-  3. kernels vs their plain PyTorch versions on the card, at the main
-     path's shapes and on a 100x100 image, a camera-crossing scene and a
-     1 x 256^2 x 8192-face cylinder: hit plane, sweep state and plane
-     stack bitwise, gradient rows within max |d| / max(max |a|, 1)
-     <= 1e-5 (the summation order differs);
-  4. main path: the step itself with every launch counter reset before
-     and read after; image 0 against the native C++ oracle; the forward's
-     winner map against the reference backend on the card; gradients
-     against the plain scatter gradient from the same forward output;
-     finite gradients; no dropped visits; every kernel launched;
-  5. timing: the median forward+backward step over 25 steps and each
-     kernel against its plain version, with CUDA events;
+  2. build: the six CUDA kernels, compiled from dirt_tpu_torch/csrc/;
+  3. kernels vs their plain PyTorch versions on the card, at the paths'
+     shapes and on a 100x100 image, a camera-crossing scene and a
+     1 x 256^2 x 8192-face cylinder: hit plane (K4), both sweeps' states
+     (K1, K7) and the plane stack (K2) bitwise, the pixels after finalize
+     bitwise, both reductions' rows (K3, K9) within max |d| / max(max |a|,
+     1) <= 1e-5 (the summation order differs);
+  4. paths, each with every launch counter reset just before and read just
+     after, failing if a kernel of the path was not launched:
+     a. blocks (the default): rasterise_batch forward + backward; image 0
+        against the native C++ oracle; the winner map against the
+        reference backend; gradients against the plain scatter gradient
+        from the same forward output; no dropped visits;
+     b. dense (backend="dense"): the same step; winner map == the blocks
+        backend's and the oracle's, pixels within 1e-4; gradients against
+        the plain scatter gradient; no dropped hits;
+     c. deferred, on the blocks and the dense backend: a 10-channel
+        G-buffer (mask, clip positions, albedo, normals) shaded by an
+        ambient + Lambert shader that closes over a light-direction leaf;
+        the fused deferred backward against the two-call form, a finite,
+        non-zero light gradient, finite vertex and attribute gradients;
+     Every kernel call a path makes (the deferred path's two-call form
+     included) is also recorded and held against its plain version on the
+     same inputs, bitwise or within 1e-5 as above;
+  5. timing (CUDA events, median of 25): each path's step, with its device
+     time per step, busy share and largest device items from
+     torch.profiler; each kernel against its plain version, its bound
+     and, for the reductions, their segment-sum form (per-pixel rows plus
+     torch.index_add);
   6. the kernels' JSON line, the card's name and power limit, and last the
      result line {"ok": true, "device": {...}}.
 """
 
+import contextlib
+import importlib
 import json
 import statistics
 import subprocess
@@ -39,8 +57,24 @@ import numpy as np
 import torch
 
 GRAD_TOL = 3e-6      # normalised, as dirt_tpu's tests/test_grad_kernels.py
-ROW_TOL = 1e-5       # K3 rows: max |kernel - plain| / max(max |plain|, 1)
+ROW_TOL = 1e-5       # K3/K9 rows: max |kernel - plain| / max(max |plain|, 1)
 STEPS = 25
+PROFILE_STEPS = 10
+# The H100 SXM's published peaks:
+# device memory 3.35 TB/s, float32 outside the tensor cores 67 TFLOP/s.
+PEAK_BYTES_PER_MS = 3.35e9
+PEAK_OPS_PER_MS = 67e9
+# Operations counted per unit of work, every arithmetic, compare, select
+# and logic operation of the kernels' expression trees:
+OPS_FACE_TEST = 48    # one (pixel, face) test of sweep_math.cuh
+OPS_HIT = 72          # one (tile, face) bbox + half-plane cull of K4
+OPS_PIXEL_SCAN = 2    # one (face slot, pixel) id compare pair of K3/K9
+OPS_POSITION_HIT = 31  # the position sums of one matching pixel
+OPS_PREPASS_BASE = 100  # per pixel of K2, plus 22 per shaded channel
+PATH_KERNELS = {
+    "blocks": ("hit_plane", "raster_sweep", "grad_prepass", "grad_reduce"),
+    "dense": ("dense_sweep", "grad_prepass", "dense_grad_reduce"),
+}
 
 
 def fail(message):
@@ -50,6 +84,10 @@ def fail(message):
 
 def phase(name, message):
     print(f"[{name}] {message}", flush=True)
+
+
+def _cdiv(a, b):
+    return -(-a // b)
 
 
 # --------------------------------------------------------------------------
@@ -69,7 +107,7 @@ def bench_scene(batch, resolution, segments, device):
     view = matrices.compose(matrices.translation(t([0., 0., -3.0])),
                             matrices.rodrigues(t([-0.4, 0., 0.])))
     projection = matrices.perspective_projection(
-        near=0.1, far=20., right=0.25, aspect=1.).to(device)
+        near=0.1, far=20., right=0.25, aspect=1., device=device)
     rotations = matrices.rodrigues(
         t(rng.uniform(-1, 1, size=(batch, 3)).astype(np.float32)))
     clip = torch.einsum("vi,bij->bvj", t(homogeneous), rotations)
@@ -97,6 +135,38 @@ def crossing_scene(device, batch=2, size=128, num_faces=200, seed=3):
     return t(bg), t(v), t(c), t(f, torch.int32), t(w)
 
 
+def deferred_scene(scene, seed=1):
+    """The bench cylinder with samples/deferred.py's 10-channel G-buffer
+    layout: mask (1), clip-space positions (xyz), albedo, unit normals
+    (albedo and normals from numpy `seed`); background attributes 0."""
+    _, clip, _, faces, weights = scene
+    batch, num_vertices = clip.shape[:2]
+    height, width = weights.shape[1:3]
+    rng = np.random.RandomState(seed)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=clip.device)
+    albedo = t(rng.uniform(0.2, 1.0, size=(batch, num_vertices, 3)))
+    normals = rng.randn(batch, num_vertices, 3)
+    normals = t(normals / np.linalg.norm(normals, axis=-1, keepdims=True))
+    attributes = torch.cat([torch.ones_like(clip[..., :1]), clip[..., :3],
+                            albedo, normals], dim=-1).contiguous()
+    background = torch.zeros(batch, height, width, 10, device=clip.device)
+    light = t([0.3, -0.5, -0.8])
+    return background, clip, attributes, faces, weights, light
+
+
+def make_shader(light):
+    """Ambient + Lambert (relu(n . l)) on the albedo, times the mask, plus
+    [0, 0, 0.3] where the mask is 0; `light` is closed over."""
+    sky = torch.tensor([0., 0., 0.3], device=light.device)
+
+    def shader(gbuffer):
+        mask = gbuffer[..., :1]
+        albedo, normals = gbuffer[..., 4:7], gbuffer[..., 7:10]
+        lambert = torch.relu((normals * light).sum(dim=-1, keepdim=True))
+        return albedo * (0.2 + lambert) * mask + sky * (1.0 - mask)
+    return shader
+
+
 # --------------------------------------------------------------------------
 # Kernel vs plain
 # --------------------------------------------------------------------------
@@ -105,17 +175,60 @@ def _max_abs(a, b):
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def segment_sum(planes, clip, faces, channels):
+    """The per-face gradient rows of parts "all" ([B*F, 3 * (3 + C)], by
+    original face) as a segment sum, the library form of the sums K3 and
+    K9 reduce: from the plain pre-pass's [B, NP, H, W] planes, each
+    covered pixel's position terms keyed by its post-dilation face and its
+    colour terms by its pre-dilation face, summed by torch.index_add."""
+    from dirt_tpu_torch.ops import grad_dense
+    batch, num_faces = faces.shape[:2]
+    _, L = grad_dense.plane_layout("all", channels)
+    plane = lambda i: planes[:, i]                          # [B, H, W]
+    b = torch.arange(batch, device=planes.device)[:, None, None]
+    face_d = plane(L["face_d"]).long()
+    face_pre = plane(L["face_pre"]).long()
+    corner_ids = faces.long()[b, face_d.clamp(min=0)]        # [B, H, W, 3]
+    corners = clip[b[..., None], corner_ids]                 # [B,H,W,3,4]
+    bd = planes[:, L["bary_d"]:L["bary_d"] + 3].movedim(1, -1)
+    cx = (bd * corners[..., 0]).sum(-1)
+    cy = (bd * corners[..., 1]).sum(-1)
+    p = plane(L["px"]) * cx + plane(L["py"]) * cy
+    pos = torch.stack([bd * plane(L["ax"])[..., None],
+                       bd * plane(L["ay"])[..., None],
+                       -bd * p[..., None]], dim=-1)         # [B,H,W,3,3]
+    bp = planes[:, L["bary_pre"]:L["bary_pre"] + 3].movedim(1, -1)
+    grad = planes[:, L["grad"]:L["grad"] + channels].movedim(1, -1)
+    col = bp[..., :, None] * grad[..., None, :]             # [B,H,W,3,C]
+    zeros = lambda n: torch.zeros(*pos.shape[:-1], n, device=pos.device)
+    d_out = 3 * (3 + channels)
+    rows = torch.cat([torch.cat([pos, zeros(channels)], -1).reshape(-1, d_out)
+                      [face_d.reshape(-1) >= 0],
+                      torch.cat([zeros(3), col], -1).reshape(-1, d_out)
+                      [face_pre.reshape(-1) >= 0]])
+    key = lambda f: (f + b * num_faces).reshape(-1)[f.reshape(-1) >= 0]
+    keys = torch.cat([key(face_d), key(face_pre)])
+    base = torch.zeros(batch * num_faces, d_out, device=planes.device)
+    return torch.index_add(base, 0, keys, rows)
+
+
 def kernel_inputs(scene):
-    """Runs the main path's stages on `scene` and returns, per kernel, a
-    pair (kernel call, plain call) of zero-argument functions on the same
-    inputs."""
+    """Runs the paths' stages on `scene`; returns, per kernel, a pair
+    (kernel call, plain call) of zero-argument functions on the same
+    inputs, the bytes and operations of its bound, and the call of the
+    PyTorch library function that computes the same sums, if any."""
     from dirt_tpu_torch.ops import (forward_blocks as fb, forward_dense,
                                     grad_blocks as gb, grad_dense,
                                     prepass_fused)
     background, clip, colors, faces, weights = scene
     batch, height, width, channels = background.shape
     th, tw, chunk = fb.TILE_H, fb.TILE_W, fb.CHUNK
-    tiles_y, tiles_x = -(-height // th), -(-width // tw)
+    tiles_y, tiles_x = _cdiv(height, th), _cdiv(width, tw)
+    pix = th * tw
     table, starts, counts, block_ids, _ = fb.pack(
         clip, colors, faces, height, width, th, tw, chunk)
     # The sorted face table as the hit test sees it: [B, NB*chunk, D].
@@ -124,35 +237,109 @@ def kernel_inputs(scene):
                 width, 0)
     sweep_args = (table, starts, counts, block_ids, channels, height, width,
                   tiles_x, tiles_y * tiles_x, th, tw)
+    state_bytes = batch * tiles_y * tiles_x * (channels + 9) * pix * 4
+
+    dth, dtw = forward_dense.tile_shape(height, width)
+    dchunk = forward_dense.CHUNK
+    dtiles_y, dtiles_x = _cdiv(height, dth), _cdiv(width, dtw)
+    dtable, dface_ids, dcounts, _ = forward_dense.pack(
+        clip, colors, faces, height, width, dth, dtw, dchunk)
+    dense_args = (dtable, dface_ids, dcounts, channels, height, width,
+                  dtiles_x, dtiles_y * dtiles_x, dth, dtw, dchunk)
+    dense_state_bytes = (batch * dtiles_y * dtiles_x * (channels + 9)
+                         * dth * dtw * 4)
 
     pixels, aux = fb.rasterise_batch(background, clip, colors, faces)
     gh, gw, gchunk = gb.TILE_H, gb.TILE_W, gb.CHUNK
     n_planes = grad_dense.plane_layout("all", channels)[0]
-    np_dma = -(-n_planes // 8) * 8
+    np_dma = _cdiv(n_planes, 8) * 8
     prepass_args = (pixels, weights, aux, gh, gw, np_dma)
     planes, _ = prepass_fused.plane_stack(*prepass_args)
     gtable, gstarts, gcounts, tile_ids, _ = gb.pack(
         clip, faces, height, width, gh, gw, gchunk)
     reduce_args = (gtable, planes, gstarts, gcounts, tile_ids, channels,
                    "all")
-    return {
+    d_out = grad_dense.d_out_for("all", channels)
+
+    dgh, dgw, dgchunk = grad_dense.TILE_H, grad_dense.TILE_W, grad_dense.CHUNK
+    dplanes, _ = prepass_fused.plane_stack(pixels, weights, aux, dgh, dgw,
+                                           np_dma)
+    dgtable, dgface_ids, dgcounts, _ = grad_dense.pack(
+        clip, faces, height, width, dgh, dgw, dgchunk)
+    dgrad_args = (dgtable, dgface_ids, dgcounts, dplanes, channels, "all",
+                  dgchunk)
+    live_slots = int((_cdiv(dgcounts, dgchunk) * dgchunk).sum())
+    # Pixels each reduction matches: one face per covered pixel, before
+    # (colour) and after (position) the dilation.
+    n_pos = int((planes[:, 7] >= 0).sum())
+    n_col = int((aux.face_index >= 0).sum())
+    matches = n_pos * OPS_POSITION_HIT + n_col * 6 * channels
+    # The planes each reduction needs (the stack's zero pad plane is the
+    # kernels' layout, not the function's input).
+    plane_bytes = batch * height * width * n_planes * 4
+    flat_planes = grad_dense.prepass_and_planes(pixels, weights, aux,
+                                                "all")[0]
+    library = lambda: segment_sum(flat_planes, clip, faces, channels)
+
+    visits = int(counts.sum())
+    listed = int(dcounts.sum())
+    work = {
+        "hit_plane": (_nbytes(face_data) + batch * tiles_y * tiles_x
+                      * face_data.shape[1] * 4,
+                      batch * tiles_y * tiles_x * face_data.shape[1]
+                      * OPS_HIT),
+        "raster_sweep": (_nbytes(table, starts, counts) + visits * 4
+                         + state_bytes,
+                         visits * chunk * pix * OPS_FACE_TEST),
+        "dense_sweep": (_nbytes(dtable, dcounts) + listed * 4
+                        + dense_state_bytes,
+                        listed * dth * dtw * OPS_FACE_TEST),
+        "grad_prepass": (_nbytes(pixels, weights, aux.barycentric,
+                                 aux.indices, aux.clip_w, aux.face_index)
+                         + plane_bytes + batch * height * width,
+                         batch * height * width
+                         * (OPS_PREPASS_BASE + 22 * channels)),
+        "grad_reduce": (_nbytes(gtable, gstarts, gcounts) + plane_bytes
+                        + int(gcounts.sum()) * 4
+                        + gtable.shape[0] * gchunk * d_out * 4,
+                        int(gcounts.sum()) * gchunk * gh * gw
+                        * OPS_PIXEL_SCAN + matches),
+        "dense_grad_reduce": (_nbytes(dgtable, dgcounts) + plane_bytes
+                              + live_slots * 4
+                              + dgface_ids.numel() * d_out * 4,
+                              live_slots * dgh * dgw * OPS_PIXEL_SCAN
+                              + matches),
+    }
+    calls = {
         "hit_plane": (lambda: fb.hit_plane(*hit_args),
                       lambda: fb.hit_plane_plain(*hit_args)),
         "raster_sweep": (lambda: fb.raster_sweep(*sweep_args),
                          lambda: fb.raster_sweep_plain(*sweep_args)),
+        "dense_sweep": (lambda: forward_dense.dense_sweep(*dense_args),
+                        lambda: forward_dense.dense_sweep_plain(*dense_args)),
         "grad_prepass": (lambda: prepass_fused.plane_stack(*prepass_args),
                          lambda: prepass_fused.plane_stack_plain(
                              *prepass_args)),
         "grad_reduce": (lambda: gb.grad_reduce(*reduce_args),
                         lambda: gb.grad_reduce_plain(*reduce_args)),
-    }, dict(background=background, channels=channels, height=height,
-            width=width, tiles_y=tiles_y, tiles_x=tiles_x, tile_h=th,
-            tile_w=tw, finalize=forward_dense.finalize)
+        "dense_grad_reduce": (
+            lambda: grad_dense.dense_grad_reduce(*dgrad_args),
+            lambda: grad_dense.dense_grad_reduce_plain(*dgrad_args)),
+    }
+    libraries = {"grad_reduce": library, "dense_grad_reduce": library}
+    finalize = lambda state, tile_h, tile_w: forward_dense.finalize(
+        state.reshape(batch, -1, channels + 9, tile_h * tile_w), background,
+        height, width, _cdiv(height, tile_h), _cdiv(width, tile_w),
+        tile_h=tile_h, tile_w=tile_w)[0]
+    return calls, dict(work=work, libraries=libraries, channels=channels,
+                       finalize=finalize, sweep_tiles={
+                           "raster_sweep": (th, tw),
+                           "dense_sweep": (dth, dtw)})
 
 
 def compare_kernels(tag, scene):
     """Holds each kernel against its plain version on `scene`; returns
-    ({name: max |kernel - plain|}, the calls of kernel_inputs)."""
+    ({name: max |kernel - plain|}, the calls and facts of kernel_inputs)."""
     calls, info = kernel_inputs(scene)
     errors = {}
 
@@ -163,27 +350,21 @@ def compare_kernels(tag, scene):
              f"{int((keep_k != keep_p).sum())} of {keep_k.numel()} entries")
     errors["hit_plane"] = _max_abs(keep_k, keep_p)
 
-    state_k, state_p = (f() for f in calls["raster_sweep"])
-    torch.cuda.synchronize()
     channels = info["channels"]
-    for name, rows in (("winner map", slice(channels + 8, channels + 9)),
-                       ("depth", slice(channels + 7, channels + 8)),
-                       ("vertex ids", slice(channels + 4, channels + 7)),
-                       ("state", slice(None))):
-        if not torch.equal(state_k[:, rows], state_p[:, rows]):
-            fail(f"{tag}: raster_sweep {name} differs from its plain version")
-    batch = info["background"].shape[0]
-    finals = []
-    for state in (state_k, state_p):
-        finals.append(info["finalize"](
-            state.reshape(batch, info["tiles_y"] * info["tiles_x"],
-                          channels + 9, -1),
-            info["background"], info["height"], info["width"],
-            info["tiles_y"], info["tiles_x"], tile_h=info["tile_h"],
-            tile_w=info["tile_w"])[0])
-    if not torch.equal(*finals):
-        fail(f"{tag}: raster_sweep pixels differ after finalize")
-    errors["raster_sweep"] = _max_abs(state_k, state_p)
+    for name in ("raster_sweep", "dense_sweep"):
+        state_k, state_p = (f() for f in calls[name])
+        torch.cuda.synchronize()
+        for what, rows in (("winner map", slice(channels + 8, channels + 9)),
+                           ("depth", slice(channels + 7, channels + 8)),
+                           ("vertex ids", slice(channels + 4, channels + 7)),
+                           ("state", slice(None))):
+            if not torch.equal(state_k[:, rows], state_p[:, rows]):
+                fail(f"{tag}: {name} {what} differs from its plain version")
+        tile = info["sweep_tiles"][name]
+        if not torch.equal(info["finalize"](state_k, *tile),
+                           info["finalize"](state_p, *tile)):
+            fail(f"{tag}: {name} pixels differ after finalize")
+        errors[name] = _max_abs(state_k, state_p)
 
     (planes_k, dil_k), (planes_p, dil_p) = (f() for f in calls["grad_prepass"])
     torch.cuda.synchronize()
@@ -194,87 +375,251 @@ def compare_kernels(tag, scene):
         fail(f"{tag}: grad_prepass dilation mask differs")
     errors["grad_prepass"] = _max_abs(planes_k, planes_p)
 
-    rows_k, rows_p = (f() for f in calls["grad_reduce"])
-    torch.cuda.synchronize()
-    rel = _max_abs(rows_k, rows_p) / max(float(rows_p.abs().max()), 1.0)
-    if not rel <= ROW_TOL:
-        fail(f"{tag}: grad_reduce rows differ by {rel} > {ROW_TOL}")
-    errors["grad_reduce"] = _max_abs(rows_k, rows_p)
-    phase("kernels", f"{tag}: K4 hit_plane ==, K1 raster_sweep == (state, "
-          f"pixels), K2 grad_prepass ==, K3 grad_reduce rel {rel:.2e} OK")
-    return errors, calls
+    rel = {}
+    for name in ("grad_reduce", "dense_grad_reduce"):
+        rows_k, rows_p = (f() for f in calls[name])
+        torch.cuda.synchronize()
+        rel[name] = (_max_abs(rows_k, rows_p)
+                     / max(float(rows_p.abs().max()), 1.0))
+        if not rel[name] <= ROW_TOL:
+            fail(f"{tag}: {name} rows differ by {rel[name]} > {ROW_TOL}")
+        errors[name] = _max_abs(rows_k, rows_p)
+    phase("kernels", f"{tag}: K4 hit_plane ==, K1 raster_sweep == and K7 "
+          f"dense_sweep == (state, pixels), K2 grad_prepass ==, K3 "
+          f"grad_reduce rel {rel['grad_reduce']:.2e}, K9 dense_grad_reduce "
+          f"rel {rel['dense_grad_reduce']:.2e} OK")
+    return errors, calls, info
+
+
+# Each kernel's wrapper and plain version, as (module under
+# dirt_tpu_torch.ops, wrapper, plain).  The paths call every wrapper
+# through its module's namespace, so `recording` can stand in for it.
+WRAPPERS = {
+    "hit_plane": ("forward_blocks", "hit_plane", "hit_plane_plain"),
+    "raster_sweep": ("forward_blocks", "raster_sweep", "raster_sweep_plain"),
+    "dense_sweep": ("forward_dense", "dense_sweep", "dense_sweep_plain"),
+    "grad_prepass": ("prepass_fused", "plane_stack", "plane_stack_plain"),
+    "grad_reduce": ("grad_blocks", "grad_reduce", "grad_reduce_plain"),
+    "dense_grad_reduce": ("grad_dense", "dense_grad_reduce",
+                          "dense_grad_reduce_plain"),
+}
+BITWISE = ("hit_plane", "raster_sweep", "dense_sweep", "grad_prepass")
+
+
+def _ops_module(name):
+    return importlib.import_module(f"dirt_tpu_torch.ops.{name}")
+
+
+def _tensors(out):
+    return list(out) if isinstance(out, tuple) else [out]
+
+
+@contextlib.contextmanager
+def recording():
+    """Within the block, each kernel wrapper also records its arguments
+    and a copy of its results; yields the list of (kernel, args, kwargs,
+    results).  The wrappers launch and count as they always do."""
+    calls, saved = [], []
+    for name, (module, wrapper, _) in WRAPPERS.items():
+        mod = _ops_module(module)
+        original = getattr(mod, wrapper)
+
+        def record(*args, _name=name, _original=original, **kwargs):
+            out = _original(*args, **kwargs)
+            calls.append((_name, args, kwargs,
+                          [t.clone() for t in _tensors(out)]))
+            return out
+        setattr(mod, wrapper, record)
+        saved.append((mod, wrapper, original))
+    try:
+        yield calls
+    finally:
+        for mod, wrapper, original in saved:
+            setattr(mod, wrapper, original)
+
+
+def check_recorded(tag, path, calls):
+    """Holds each recorded kernel call against its plain version on the
+    same arguments: K4, K1, K7 and K2 bitwise, K3 and K9 within ROW_TOL;
+    fails if a kernel of `path` has no recorded call.  Returns {kernel:
+    [shape of each call's first result]}."""
+    checked = {}
+    for name, args, kwargs, got in calls:
+        module, _, plain = WRAPPERS[name]
+        want = _tensors(getattr(_ops_module(module), plain)(*args, **kwargs))
+        torch.cuda.synchronize()
+        for g, w in zip(got, want, strict=True):
+            if name in BITWISE:
+                if not torch.equal(g, w):
+                    fail(f"{tag}: {name} call {tuple(g.shape)} differs "
+                         f"from its plain version (max {_max_abs(g, w)})")
+                continue
+            rel = _max_abs(g, w) / max(float(w.abs().max()), 1.0)
+            if not rel <= ROW_TOL:
+                fail(f"{tag}: {name} call {tuple(g.shape)} differs from its "
+                     f"plain version by {rel} > {ROW_TOL}")
+        checked.setdefault(name, []).append(tuple(got[0].shape))
+    missing = set(PATH_KERNELS[path]) - set(checked)
+    if missing:
+        fail(f"{tag}: no call of {sorted(missing)} was recorded")
+    return checked
 
 
 # --------------------------------------------------------------------------
-# Main path
+# Paths
 # --------------------------------------------------------------------------
 
-def step(scene):
-    """One forward + backward of the main path; returns (pixels, grads)."""
+def step(scene, backend=None):
+    """One forward + backward of the direct path; returns (pixels,
+    grads)."""
     import dirt_tpu_torch
     background, clip, colors, faces, weights = scene
     leaves = [x.detach().clone().requires_grad_(True)
               for x in (background, clip, colors)]
     pixels = dirt_tpu_torch.rasterise_batch(leaves[0], leaves[1], leaves[2],
-                                            faces)
+                                            faces, backend=backend)
     (pixels * weights).sum().backward()
     return pixels.detach(), [x.grad for x in leaves]
 
 
-def check_main_path(scene):
+def deferred_step(dscene, backend=None):
+    """One forward + backward of the deferred path; returns (pixels,
+    [background, vertex, attribute, light] gradients)."""
     import dirt_tpu_torch
-    from dirt_tpu_torch.ops import _cuda, backward, dispatch
+    background, clip, attributes, faces, weights, light = dscene
+    leaves = [x.detach().clone().requires_grad_(True)
+              for x in (background, clip, attributes, light)]
+    pixels = dirt_tpu_torch.rasterise_batch_deferred(
+        leaves[0], leaves[1], leaves[2], faces, make_shader(leaves[3]),
+        backend=backend)
+    (pixels * weights).sum().backward()
+    return pixels.detach(), [x.grad for x in leaves]
+
+
+def counted(path, run):
+    """Runs `run` with every launch counter reset just before and read just
+    after; fails if a kernel of `path` was not launched.  Returns (run's
+    result, {kernel: launches})."""
+    from dirt_tpu_torch.ops import _cuda
+    _cuda.reset_counts()
+    out = run()
+    torch.cuda.synchronize()
+    launches = {name: _cuda.KERNELS[name].launches
+                for name in PATH_KERNELS[path]}
+    idle = [name for name, n in launches.items() if n <= 0]
+    if idle:
+        fail(f"{path} path did not launch {idle}")
+    return out, launches
+
+
+def _check_grads(tag, pairs):
+    for name, got, want in pairs:
+        if not bool(torch.isfinite(got).all()):
+            fail(f"{tag}: {name} has non-finite values")
+        scale = max(float(want.abs().max()), 1.0)
+        err = float((got - want).abs().max()) / scale
+        if not err <= GRAD_TOL:
+            fail(f"{tag}: {name} differs by {err} > {GRAD_TOL} (normalised)")
+
+
+def check_main_path(scene, backend="blocks"):
+    """Drives the direct path on `backend` and checks it (phase 4a/4b);
+    returns the launches of its kernels."""
+    import dirt_tpu_torch
+    from dirt_tpu_torch.ops import backward, dispatch
     from dirt_tpu_torch.utils import oracle
     background, clip, colors, faces, weights = scene
 
-    _cuda.reset_counts()
-    pixels, (g_bg, g_clip, g_colors) = step(scene)
-    torch.cuda.synchronize()
-    launches = {name: k.launches for name, k in _cuda.KERNELS.items()}
-    phase("main", f"launches in one step: {launches}")
-    idle = [name for name, n in launches.items() if n <= 0]
-    if idle:
-        fail(f"main path did not launch {idle}")
+    with recording() as calls:
+        (pixels, (g_bg, g_clip, g_colors)), launches = counted(
+            backend, lambda: step(scene, backend))
+    phase(backend, f"launches in one step: {launches}")
+    shapes = check_recorded(backend, backend, calls)
+    phase(backend, f"each kernel call of the step == (K3/K9 within "
+          f"{ROW_TOL}) its plain version on the same inputs: {shapes}")
 
     px_aux, aux = dirt_tpu_torch.rasterise_batch_with_aux(
-        background, clip, colors, faces)
+        background, clip, colors, faces, backend=backend)
     if not torch.equal(px_aux, pixels):
-        fail("rasterise_batch_with_aux pixels differ from the step's")
+        fail(f"{backend}: rasterise_batch_with_aux pixels differ from the "
+             f"step's")
     if int(aux.dropped.max()) != 0:
-        fail(f"dropped visits: {aux.dropped.tolist()}")
+        fail(f"{backend}: dropped visits: {aux.dropped.tolist()}")
 
     want_px, want_index = oracle.rasterise(
         background[0].cpu().numpy(), clip[0].cpu().numpy(),
         colors[0].cpu().numpy(), faces[0].cpu().numpy())
     if not np.array_equal(aux.face_index[0].cpu().numpy(), want_index):
-        fail("winner map of image 0 differs from the native oracle")
+        fail(f"{backend}: winner map of image 0 differs from the native "
+             f"oracle")
     got_px = pixels[0].cpu().numpy()
     if not np.allclose(got_px, want_px, atol=1e-4, rtol=1e-5):
-        fail(f"pixels of image 0 differ from the native oracle by up to "
-             f"{np.abs(got_px - want_px).max()}")
+        fail(f"{backend}: pixels of image 0 differ from the native oracle by "
+             f"up to {np.abs(got_px - want_px).max()}")
 
-    _, ref_aux = dispatch.forward_batch(background, clip, colors, faces,
-                                        "reference")
-    if not torch.equal(ref_aux.face_index, aux.face_index):
-        fail("winner map differs from the reference backend on the card")
+    other = "reference" if backend == "blocks" else "blocks"
+    _, other_aux = dispatch.forward_batch(background, clip, colors, faces,
+                                          other)
+    if not torch.equal(other_aux.face_index, aux.face_index):
+        fail(f"{backend}: winner map differs from the {other} backend's")
 
     want_bg, want_v, want_c = backward.rasterise_grad_grouped(
         clip, faces, pixels, weights, aux, implementation="xla")
     if not torch.equal(g_bg, want_bg):
-        fail("grad_background differs from the plain gradient")
-    for name, got, want in (("grad_vertices", g_clip, want_v),
-                            ("grad_vertex_colors", g_colors, want_c)):
-        if not bool(torch.isfinite(got).all()):
-            fail(f"{name} has non-finite values")
-        scale = max(float(want.abs().max()), 1.0)
-        err = float((got - want).abs().max()) / scale
-        if not err <= GRAD_TOL:
-            fail(f"{name} differs from the plain gradient: {err} > "
-                 f"{GRAD_TOL} (normalised)")
+        fail(f"{backend}: grad_background differs from the plain gradient")
+    _check_grads(backend, (("grad_vertices", g_clip, want_v),
+                           ("grad_vertex_colors", g_colors, want_c)))
     if not bool(torch.isfinite(g_bg).all()):
-        fail("grad_background has non-finite values")
-    phase("main", "oracle winner map == and pixels within 1e-4; reference "
-          "winner map ==; gradients vs plain within 3e-6; finite; dropped 0")
+        fail(f"{backend}: grad_background has non-finite values")
+    phase(backend, f"oracle winner map == and pixels within 1e-4; {other} "
+          f"winner map ==; gradients vs plain within 3e-6; finite; "
+          f"dropped 0")
+    return launches
+
+
+def check_deferred_path(dscene, backend):
+    """Drives the deferred path on `backend` and checks it (phase 4c);
+    returns the launches of its kernels."""
+    import dirt_tpu_torch
+    from dirt_tpu_torch.ops import backward, dispatch
+    background, clip, attributes, faces, weights, light = dscene
+    tag = f"deferred {backend}"
+
+    # The fused step and the two-call form run the kernels at the deferred
+    # shapes (a 10-channel G-buffer: 19 state rows, colour cotangents of
+    # 10 channels, parts "all" with a cotangent and parts "color"); each
+    # call is held against its plain version on its own inputs.
+    with recording() as calls:
+        (_, (g_bg, g_clip, g_attrs, g_light)), launches = counted(
+            backend, lambda: deferred_step(dscene, backend))
+        phase(tag, f"launches in one step: {launches}")
+
+        gbuffer, aux = dirt_tpu_torch.rasterise_batch_with_aux(
+            background, clip, attributes, faces, backend=backend)
+        gbuffer.requires_grad_(True)
+        shaded = make_shader(light)(gbuffer)
+        (grad_gbuffer,) = torch.autograd.grad(shaded, gbuffer, weights)
+        shaded, gbuffer = shaded.detach(), gbuffer.detach()
+        implementation = dispatch.GRAD_FOR_BACKEND[backend]
+        _, want_v, _ = backward.rasterise_grad_grouped(
+            clip, faces, shaded, weights, aux, parts="position",
+            implementation=implementation)
+        want_bg, _, want_attrs = backward.rasterise_grad_grouped(
+            clip, faces, gbuffer, grad_gbuffer, aux, parts="color",
+            implementation=implementation)
+    shapes = check_recorded(tag, backend, calls)
+    phase(tag, f"each kernel call of the fused step and the two-call form "
+          f"== (K3/K9 within {ROW_TOL}) its plain version on the same "
+          f"inputs: {shapes}")
+    _check_grads(tag, (("grad_background", g_bg, want_bg),
+                       ("grad_vertices", g_clip, want_v),
+                       ("grad_attributes", g_attrs, want_attrs)))
+    if not bool(torch.isfinite(g_light).all()) or not bool(
+            (g_light != 0).any()):
+        fail(f"{tag}: light gradient {g_light.tolist()} is not finite and "
+             f"non-zero")
+    phase(tag, f"fused vs two-call within 3e-6; light gradient "
+          f"{[round(float(g), 4) for g in g_light]}; finite")
     return launches
 
 
@@ -296,6 +641,40 @@ def time_ms(fn, reps):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_profile(fn, reps):
+    """torch.profiler's view of fn(), per call over `reps` calls after one
+    warm-up: (device ms, device kernels, {largest device items: ms}); the
+    device ms is None where the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")
+              and e.self_device_time_total > 0]
+    if not device:
+        return None, 0, {}
+    items = {}
+    for e in device:
+        items[e.key[:48]] = (items.get(e.key[:48], 0.0)
+                             + e.self_device_time_total / 1e3 / reps)
+    top = dict(sorted(items.items(), key=lambda kv: -kv[1])[:4])
+    return (sum(items.values()), sum(e.count for e in device) / reps,
+            {k: round(v, 4) for k, v in top.items()})
+
+
+def bound(nbytes, ops):
+    """The least time (ms) the card could take, and what bounds it."""
+    by_bytes = nbytes / PEAK_BYTES_PER_MS
+    by_ops = ops / PEAK_OPS_PER_MS
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
 
 
 def card():
@@ -320,41 +699,72 @@ def main():
     from dirt_tpu_torch.ops import _cuda
     t0 = time.perf_counter()
     _cuda.load()
-    phase("build", f"kernels built and loaded in "
+    phase("build", f"{len(_cuda.SOURCES)} sources built and loaded in "
           f"{time.perf_counter() - t0:.1f} s ({_cuda.library_path().name})")
 
     # 3. Kernels vs plain
     scene = bench_scene(16, 256, 64, device)
-    errors, calls = compare_kernels("bench 16x256^2x512f", scene)
+    errors, calls, info = compare_kernels("bench 16x256^2x512f", scene)
     compare_kernels("100x100", bench_scene(4, 100, 64, device))
     compare_kernels("camera-crossing", crossing_scene(device))
     compare_kernels("1x256^2x8192f", bench_scene(1, 256, 1024, device))
 
-    # 4. Main path
-    launches = check_main_path(scene)
+    # 4. Paths
+    launches = check_main_path(scene, "blocks")
+    launches.update(check_main_path(scene, "dense"))
+    dscene = deferred_scene(scene)
+    deferred_launches = {backend: check_deferred_path(dscene, backend)
+                         for backend in ("blocks", "dense")}
 
     # 5. Timing
-    step_ms = time_ms(lambda: step(scene), STEPS)
+    paths = {
+        "blocks direct": lambda: step(scene, "blocks"),
+        "dense direct": lambda: step(scene, "dense"),
+        "deferred blocks": lambda: deferred_step(dscene, "blocks"),
+        "deferred dense": lambda: deferred_step(dscene, "dense"),
+    }
+    steps = {name: time_ms(run, STEPS) for name, run in paths.items()}
+    for name, run in paths.items():
+        device_ms, n_kernels, top = device_profile(run, PROFILE_STEPS)
+        device, busy = "not measured", "not measured"
+        if device_ms is not None:
+            device = f"{device_ms:.4f} ms/step"
+            busy = f"{device_ms / steps[name]:.3f}"
+        phase("profile", f"{name}: device {device} (torch.profiler, "
+              f"{PROFILE_STEPS} steps), busy share {busy} of the "
+              f"{steps[name]:.4f} ms step, "
+              f"{n_kernels:.0f} device kernels/step, largest {top} on "
+              f"{card_line}")
     kernels = []
     for name, (kernel, plain) in calls.items():
         k = _cuda.KERNELS[name]
+        bound_ms, bound_by = bound(*info["work"][name])
+        library = info["libraries"].get(name)
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"dirt_tpu_torch/csrc/{name}.cu",
+            "source": f"dirt_tpu_torch/csrc/{k.source}",
             "replaces": k.replaces, "launches": launches[name],
             "max_abs_err": errors[name],
-            "ms": time_ms(kernel, STEPS), "plain_ms": time_ms(plain, 5)})
+            "ms": time_ms(kernel, STEPS), "plain_ms": time_ms(plain, 5),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None if library is None else time_ms(library,
+                                                               STEPS)})
         phase("timing", f"{name}: {kernels[-1]['ms']:.4f} ms, plain "
-              f"{kernels[-1]['plain_ms']:.4f} ms")
-    phase("timing", f"main path fwd+bwd 16x256^2x3, 512 faces: median "
-          f"{step_ms:.4f} ms/step over {STEPS} steps on {card_line}")
+              f"{kernels[-1]['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}), library "
+              f"{kernels[-1]['library_ms']} ms, {launches[name]} launches "
+              f"on {card_line}")
+    for name, ms in steps.items():
+        phase("timing", f"{name} step fwd+bwd 16x256^2, 512 faces: median "
+              f"{ms:.4f} ms/step over {STEPS} steps on {card_line}")
+    phase("timing", f"deferred launches per step: {deferred_launches}")
 
     # 6. Result
     print(json.dumps({"kernels": kernels}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
 
 
 if __name__ == "__main__":

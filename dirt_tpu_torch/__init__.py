@@ -4,21 +4,29 @@ A second package beside the JAX one: the same differentiable rasteriser
 (homogeneous edge functions, top-left fill rule, per-fragment near/far
 clip, lexicographic depth test, filter-based gradients with occluder
 dilation), mirroring dirt_tpu's modules and function names.  On CUDA
-tensors the main path runs four hand-written sm_90a kernels
-(dirt_tpu_torch/csrc/); on CPU tensors it runs plain PyTorch.  It never
-imports jax.
+tensors the "blocks" and "dense" backends run six hand-written sm_90a
+kernels (dirt_tpu_torch/csrc/); on CPU tensors they run plain PyTorch.
+Entry points run on the card unless the caller passes CPU tensors or
+device="cpu".  It never imports jax.
 
 Public entry points: rasterise, rasterise_batch, rasterise_batch_with_aux,
-plus the ``matrices`` helper module.
+rasterise_deferred, rasterise_batch_deferred, rasterise_grad_debug, plus
+the ``matrices`` helper module.
 """
 
 from . import matrices
-from .rasterise_ops import rasterise, rasterise_batch, rasterise_batch_with_aux
+from .rasterise_ops import (rasterise, rasterise_batch,
+                            rasterise_batch_deferred,
+                            rasterise_batch_with_aux, rasterise_deferred,
+                            rasterise_grad_debug)
 
 __all__ = [
     "rasterise",
     "rasterise_batch",
     "rasterise_batch_with_aux",
+    "rasterise_deferred",
+    "rasterise_batch_deferred",
+    "rasterise_grad_debug",
     "matrices",
 ]
 

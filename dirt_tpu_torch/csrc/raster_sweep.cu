@@ -15,11 +15,11 @@
 // minimum is associative, so visiting faces one by one picks the same
 // winner as the TPU's chunk minimum followed by the merge.
 //
-// The thread keeps the winner's depth, index, E0..E2 and S_w in registers,
-// and the winner's table row number; at the end it reads the row's vertex
+// The per-face test and the state write are sweep_math.cuh's, shared with
+// K7 dense_sweep: the thread keeps the winner's depth, index, E0..E2, S_w
+// and table row number in registers, and at the end reads the row's vertex
 // ids and corner attributes from global memory and writes the packed state
-// [C+9, PIX] of forward_dense (numerators ((E0*a0 + E1*a1) + E2*a2), so
-// finalize's single division keeps constant attributes exact).
+// [C+9, PIX] of forward_dense.
 //
 // What bounds it on the H100: arithmetic and shared-memory reads per
 // (pixel, swept face) -- about 30 flops and 18 broadcast shared loads, with
@@ -36,9 +36,9 @@
 
 #include <cuda_runtime.h>
 
-namespace {
+#include "sweep_math.cuh"
 
-constexpr int kBase = 27;   // forward_pallas._BASE
+namespace {
 
 __global__ void raster_sweep_kernel(
     const float* __restrict__ table,      // [B*NB, chunk, width_d]
@@ -61,11 +61,7 @@ __global__ void raster_sweep_kernel(
   const float xg = ((float)col + 0.5f) * sx - 1.0f;
   const float yg = 1.0f - ((float)row + 0.5f) * sy;
 
-  float best_d = 1.0f;
-  float best_o = -1.0f;
-  float w_e0 = 0.0f, w_e1 = 0.0f, w_e2 = 0.0f, w_sw = 0.0f;
-  long long best_row = -1;
-
+  dirt::Winner w;
   const int start = starts[bt];
   const int n = counts[bt];
   const int block_floats = chunk * width_d;
@@ -78,54 +74,13 @@ __global__ void raster_sweep_kernel(
     }
     __syncthreads();
     for (int k = 0; k < chunk; ++k) {
-      const float* f = rows + k * width_d;
-      const float e0 = (f[0] * xg + f[1] * yg) + f[2];
-      const float e1 = (f[3] * xg + f[4] * yg) + f[5];
-      const float e2 = (f[6] * xg + f[7] * yg) + f[8];
-      const float s_z = (e0 * f[9] + e1 * f[10]) + e2 * f[11];
-      const float s_w = (e0 * f[12] + e1 * f[13]) + e2 * f[14];
-      const bool sp = s_w > 0.0f;
-      const bool d0 = ((e0 > 0.0f) || ((e0 == 0.0f) && (f[15] != 0.0f))) == sp;
-      const bool d1 = ((e1 > 0.0f) || ((e1 == 0.0f) && (f[16] != 0.0f))) == sp;
-      const bool d2 = ((e2 > 0.0f) || ((e2 == 0.0f) && (f[17] != 0.0f))) == sp;
-      // NaN s_w (invalid rows) passes != 0 and fails the magnitude test.
-      const bool covered = d0 && d1 && d2 && (s_w != 0.0f) &&
-                           (fabsf(s_z) <= fabsf(s_w));
-      if (!covered) continue;
-      const float depth = s_z / s_w;
-      const float orig = f[19];
-      if (depth < best_d || (depth == best_d && orig < best_o)) {
-        best_d = depth;
-        best_o = orig;
-        w_e0 = e0;
-        w_e1 = e1;
-        w_e2 = e2;
-        w_sw = s_w;
-        best_row = bid * chunk + k;
-      }
+      dirt::test_face(rows + k * width_d, xg, yg, bid * chunk + k, w);
     }
   }
 
   if (p >= pix) return;
-  float* out = state + (long long)bt * (channels + 9) * pix + p;
-  if (best_row >= 0) {
-    const float* f = table + best_row * width_d;
-    for (int ch = 0; ch < channels; ++ch) {
-      out[ch * pix] = (w_e0 * f[kBase + ch] + w_e1 * f[kBase + channels + ch])
-                      + w_e2 * f[kBase + 2 * channels + ch];
-    }
-    out[(channels + 0) * pix] = w_e0;
-    out[(channels + 1) * pix] = w_e1;
-    out[(channels + 2) * pix] = w_e2;
-    out[(channels + 3) * pix] = w_sw;
-    out[(channels + 4) * pix] = f[24];
-    out[(channels + 5) * pix] = f[25];
-    out[(channels + 6) * pix] = f[26];
-  } else {
-    for (int k = 0; k < channels + 7; ++k) out[k * pix] = 0.0f;
-  }
-  out[(channels + 7) * pix] = best_d;
-  out[(channels + 8) * pix] = best_o;
+  dirt::write_state(table, width_d, channels, w,
+                    state + (long long)bt * (channels + 9) * pix + p, pix);
 }
 
 }  // namespace

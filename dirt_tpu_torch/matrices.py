@@ -5,23 +5,29 @@ Matrices *right*-multiply row vectors: they are indexed
 Scene math stays in full float32: TF32 is switched off for matrix products
 and convolutions when this module is imported, as the JAX package pins
 "highest" matmul precision for its cross-backend comparisons.
+
+Every function takes a ``device`` keyword.  Tensor arguments keep their
+device; arguments that are all Python or numpy values go to ``device``,
+and without one to the CUDA card (see dirt_tpu_torch/devices.py).
 """
 
 import torch
+
+from .devices import input_device
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 
-def _f32(x, like=None):
-    device = like.device if isinstance(like, torch.Tensor) else None
+def _f32(x, device):
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
-def rodrigues(vectors, three_by_three=False):
+def rodrigues(vectors, three_by_three=False, device=None):
     """Angle-axis rotation matrices from [*, 3] vectors (direction = axis,
     length = angle in radians); returns [*, D, D] with D = 3 or 4."""
-    vectors = _f32(vectors) + 1.e-12  # keeps the derivative finite at zero
+    # + 1e-12 keeps the derivative finite at zero.
+    vectors = _f32(vectors, input_device([vectors], device)) + 1.e-12
     norms = torch.linalg.norm(vectors, dim=-1, keepdim=True)   # [*, 1]
     units = vectors / norms
     norms = norms[..., 0]
@@ -44,9 +50,9 @@ def rodrigues(vectors, three_by_three=False):
     return pad_3x3_to_4x4(result_3x3)
 
 
-def translation(x):
+def translation(x, device=None):
     """Translation matrices [*, 4, 4] from [*, 3] displacements."""
-    x = _f32(x)
+    x = _f32(x, input_device([x], device))
     zeros = torch.zeros_like(x[..., 0])
     ones = torch.ones_like(zeros)
     return torch.stack([
@@ -57,18 +63,20 @@ def translation(x):
     ], dim=-2)
 
 
-def scale(x):
+def scale(x, device=None):
     """Scaling matrices [*, 4, 4] from [*, 3] scale factors."""
-    x = _f32(x)
+    x = _f32(x, input_device([x], device))
     diag = torch.cat([x, torch.ones_like(x[..., :1])], dim=-1)
     return diag[..., :, None] * torch.eye(4, dtype=torch.float32,
                                           device=x.device)
 
 
-def perspective_projection(near, far, right, aspect):
+def perspective_projection(near, far, right, aspect, device=None):
     """OpenGL-convention perspective projection matrices [*, 4, 4]
     (right-multiplying row vectors); all parameters broadcast together."""
-    near, far, right, aspect = (_f32(a) for a in (near, far, right, aspect))
+    device = input_device([near, far, right, aspect], device)
+    near, far, right, aspect = (_f32(a, device)
+                                for a in (near, far, right, aspect))
     top = right * aspect
     near, far, top, right = torch.broadcast_tensors(near, far, top, right)
     zeros = torch.zeros_like(near)
@@ -83,9 +91,9 @@ def perspective_projection(near, far, right, aspect):
     ], dim=-2)
 
 
-def pad_3x3_to_4x4(matrix):
+def pad_3x3_to_4x4(matrix, device=None):
     """Pads a [*, 3, 3] transform to a [*, 4, 4] homogeneous transform."""
-    matrix = _f32(matrix)
+    matrix = _f32(matrix, input_device([matrix], device))
     return torch.cat([
         torch.cat([matrix, torch.zeros_like(matrix[..., :, :1])], dim=-1),
         torch.cat([torch.zeros_like(matrix[..., :1, :]),
@@ -93,12 +101,13 @@ def pad_3x3_to_4x4(matrix):
     ], dim=-2)
 
 
-def compose(*matrices):
+def compose(*matrices, device=None):
     """Composes transforms left to right (the first is applied first);
     the 4x4 identity for an empty sequence."""
+    device = input_device(matrices, device)
     if not matrices:
-        return torch.eye(4, dtype=torch.float32)
-    result = _f32(matrices[0])
+        return torch.eye(4, dtype=torch.float32, device=device)
+    result = _f32(matrices[0], device)
     for m in matrices[1:]:
-        result = result @ _f32(m, like=result)
+        result = result @ _f32(m, device)
     return result

@@ -1,10 +1,11 @@
 """Build, load and launch counting for the hand-written Hopper kernels.
 
-The four CUDA C++ sources under dirt_tpu_torch/csrc/ are compiled by nvcc
-into one shared library with a plain C interface and loaded with ctypes
-(no PyTorch headers, so a build takes seconds).  The library name carries
-a hash of the sources and flags; it is built at first use into the
-git-ignored dirt_tpu_torch/_build/ directory.
+The CUDA C++ sources under dirt_tpu_torch/csrc/ are compiled by nvcc, one
+process per source, all started together, and linked into one shared
+library with a plain C interface, loaded with ctypes (no PyTorch headers,
+so a build takes seconds).  The library name carries a hash of the
+sources, the headers they share and the flags; it is built at first use
+into the git-ignored dirt_tpu_torch/_build/ directory.
 
 Flags: sm_90a, IEEE division and square root (no --use_fast_math: the
 coverage test relies on NaN comparing false), and -fmad=false, so every
@@ -29,9 +30,10 @@ _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("raster_sweep.cu", "hit_plane.cu", "grad_prepass.cu",
-           "grad_reduce.cu")
+           "grad_reduce.cu", "dense_sweep.cu", "dense_grad.cu")
+HEADERS = ("sweep_math.cuh", "grad_math.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
 _lib = None
 KERNELS = {}
@@ -53,7 +55,7 @@ def _nvcc():
 
 def library_path():
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         digest.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"libdirt_kernels_{digest.hexdigest()[:16]}.so"
 
@@ -66,10 +68,22 @@ def load():
     path = library_path()
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        tag = f"{path.stem}.{os.getpid()}"
+        objects = [BUILD_DIR / f"{tag}.{name}.o" for name in SOURCES]
+        compiles = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                                      str(CSRC / name)])
+                    for name, obj in zip(SOURCES, objects)]
+        failed = [name for name, proc in zip(SOURCES, compiles)
+                  if proc.wait() != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}")
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                        *(str(CSRC / s) for s in SOURCES)], check=True)
+        subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                        *(str(obj) for obj in objects)], check=True)
         os.replace(tmp, path)
+        for obj in objects:
+            obj.unlink()
     _lib = ctypes.CDLL(str(path))
     return _lib
 
@@ -77,11 +91,12 @@ def load():
 class Kernel:
     """One C entry point of the library, with its launch count."""
 
-    def __init__(self, name, symbol, argtypes, replaces):
+    def __init__(self, name, symbol, argtypes, replaces, source):
         self.name = name
         self.symbol = symbol
         self.argtypes = argtypes
-        self.replaces = replaces
+        self.replaces = replaces      # "file:line" of each TPU kernel def
+        self.source = source          # its file under csrc/
         self.launches = 0
         KERNELS[name] = self
 

@@ -16,16 +16,17 @@ The semantics are the reference gradient kernel's
      vertices' x, y and w (never z).
 
 This module is the plain "xla" path (jax.ops.segment_sum becomes
-index_add_) and the channel grouping; the block-binned path with its CUDA
-kernels is ops/grad_blocks.py.  The opt-in diagonal dilation and the
-deferred entry point are not ported yet (ROADMAP).
+index_add_), the channel grouping and the fused deferred backward; the
+block-binned path with its CUDA kernels is ops/grad_blocks.py, the
+tile-major dense path ops/grad_dense.py.  The opt-in diagonal dilation
+and dirt_tpu's "mxu" gradient are not ported yet (ROADMAP).
 """
 
 from typing import NamedTuple
 
 import torch
 
-IMPLEMENTATIONS = ("xla", "blocks")
+IMPLEMENTATIONS = ("xla", "blocks", "dense")
 
 
 class RasteriseGrads(NamedTuple):
@@ -259,6 +260,23 @@ def default_implementation(device):
     return "blocks" if torch.device(device).type == "cuda" else "xla"
 
 
+def resolve_implementation(implementation, device):
+    """None -> the device's default; "pallas" -> "blocks", the kernel
+    dirt_tpu's automatic Pallas choice picks at every mesh size.  "mxu"
+    and unknown names raise."""
+    implementation = implementation or default_implementation(device)
+    if implementation == "pallas":
+        implementation = "blocks"
+    if implementation == "mxu":
+        raise ValueError("the 'mxu' gradient (dirt_tpu/ops/grad_mxu.py) is "
+                         "not ported; use 'blocks', 'dense' or 'xla'")
+    if implementation not in IMPLEMENTATIONS:
+        raise ValueError(f"unknown gradient implementation "
+                         f"{implementation!r}; expected one of "
+                         f"{IMPLEMENTATIONS}, 'pallas' or None")
+    return implementation
+
+
 def rasterise_grad_batch(vertices, faces, pixels, grad_pixels, aux,
                          implementation=None, parts="all",
                          color_cotangent=None):
@@ -269,8 +287,9 @@ def rasterise_grad_batch(vertices, faces, pixels, grad_pixels, aux,
     matching parts="all" rows.  `color_cotangent` ([B, H, W, C'],
     parts="all" only) feeds the colour and background gradients while the
     position gradients keep Scharr-filtering `pixels` against
-    `grad_pixels`.  `implementation`: "xla" (this module) or "blocks"
-    (ops/grad_blocks.py); None chooses by device.
+    `grad_pixels`.  `implementation`: "xla" (this module), "blocks"
+    (ops/grad_blocks.py), "dense" (ops/grad_dense.py), "pallas" (the
+    automatic kernel choice, "blocks"); None chooses by device.
     """
     if color_cotangent is not None and parts != "all":
         raise ValueError("color_cotangent requires parts='all' (it IS the "
@@ -278,11 +297,7 @@ def rasterise_grad_batch(vertices, faces, pixels, grad_pixels, aux,
     if parts not in ("all", "position", "color"):
         raise ValueError(
             f"unknown parts {parts!r}; expected 'all', 'position' or 'color'")
-    implementation = implementation or default_implementation(pixels.device)
-    if implementation not in IMPLEMENTATIONS:
-        raise ValueError(f"unknown gradient implementation "
-                         f"{implementation!r}; expected one of "
-                         f"{IMPLEMENTATIONS} or None")
+    implementation = resolve_implementation(implementation, pixels.device)
     vertices = vertices.float().contiguous()
     pixels = pixels.float().contiguous()
     grad_pixels = grad_pixels.float().contiguous()
@@ -291,6 +306,11 @@ def rasterise_grad_batch(vertices, faces, pixels, grad_pixels, aux,
     if implementation == "blocks":
         from . import grad_blocks
         return grad_blocks.rasterise_grad_batch(
+            vertices, faces, pixels, grad_pixels, aux, parts=parts,
+            color_cotangent=color_cotangent)
+    if implementation == "dense":
+        from . import grad_dense
+        return grad_dense.rasterise_grad_batch(
             vertices, faces, pixels, grad_pixels, aux, parts=parts,
             color_cotangent=color_cotangent)
     return rasterise_grad_xla(vertices, pixels, grad_pixels, aux, parts,
@@ -354,3 +374,44 @@ def rasterise_grad_grouped(vertices, faces, pixels, grad_pixels, aux,
         grad_vertex_colors = torch.zeros(
             grad_vertices.shape[:-1] + (channels,), device=pixels.device)
     return grad_background, grad_vertices, grad_vertex_colors
+
+
+def rasterise_grad_deferred(vertices, faces, pixels, grad_pixels, gbuffer,
+                            grad_gbuffer, aux, implementation=None):
+    """The fused deferred backward: vertex gradients from Scharr-filtering
+    the SHADED `pixels` against `grad_pixels`, and attribute / background
+    gradients from the shader-chained G-buffer cotangent `grad_gbuffer`,
+    in one parts="all" sweep per shaded channel group instead of a
+    parts="position" plus a parts="color" sweep.
+
+    Colour reductions are per-channel independent and only the position
+    half's Scharr is group-sensitive, so every G-buffer channel rides the
+    first shaded group's sweep (as its color_cotangent) and any further
+    shaded groups add position-only sweeps.  Every row is the same
+    expression as in the two-call form, so the result equals it bitwise
+    wherever the scatter sums in a fixed order.  All arguments [B, ...];
+    `gbuffer` is only for the signature's parity with dirt_tpu (whose
+    unported "mxu" path falls back to two calls).
+
+    Returns (grad_background, grad_vertices, grad_attributes).
+    """
+    del gbuffer
+    implementation = resolve_implementation(implementation, pixels.device)
+    grad_vertices = grad_background = grad_attributes = None
+    for i, (begin, end) in enumerate(_channel_groups(pixels.shape[-1])):
+        if i == 0:
+            grads = rasterise_grad_batch(
+                vertices, faces, pixels[..., begin:end],
+                grad_pixels[..., begin:end], aux,
+                implementation=implementation, parts="all",
+                color_cotangent=grad_gbuffer)
+            grad_background = grads.grad_background
+            grad_attributes = grads.grad_vertex_colors
+        else:
+            grads = rasterise_grad_batch(
+                vertices, faces, pixels[..., begin:end],
+                grad_pixels[..., begin:end], aux,
+                implementation=implementation, parts="position")
+        grad_vertices = (grads.grad_vertices if grad_vertices is None
+                         else grad_vertices + grads.grad_vertices)
+    return grad_background, grad_vertices, grad_attributes

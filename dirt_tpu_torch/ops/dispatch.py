@@ -6,16 +6,24 @@ Backends:
                  CUDA tensors its hit test and sweep run as the CUDA
                  kernels K4 and K1; on CPU tensors, as their plain
                  PyTorch versions.
+  * "dense":     exact per-tile face lists (ops/forward_dense.py).  On
+                 CUDA tensors its sweep runs as the CUDA kernel K7.
   * "reference": brute-force sweep (ops/reference.py), the oracle.
   * None/"auto": chosen by the tensors' device -- "blocks" for CUDA,
                  "reference" for the CPU, the same defaults dirt_tpu uses
-                 on its accelerator and on the CPU.  DIRT_TPU_TORCH_BACKEND
-                 overrides the choice.
+                 on its accelerator and on the CPU.  On CUDA a non-zero
+                 DIRT_TPU_TORCH_BLOCKS_THRESHOLD chooses "dense" for
+                 meshes of at most that many faces, as dirt_tpu's
+                 DIRT_TPU_BLOCKS_THRESHOLD does; its default 0 keeps
+                 "blocks", since no H100 measurement yet favours "dense"
+                 at any face count.  DIRT_TPU_TORCH_BACKEND overrides the
+                 choice.
 
 The gradient follows the forward's choice: "blocks" pairs with the
-block-binned gradient (kernels K2 and K3), "reference" with the plain
-scatter gradient ("xla", the name dirt_tpu gives it).  dirt_tpu's
-"dense" and "pallas" backends are not ported yet (ROADMAP queue 2).
+block-binned gradient (kernels K2 and K3), "dense" with the tile-major
+dense gradient (kernels K2 and K9), "reference" with the plain scatter
+gradient ("xla", the name dirt_tpu gives it).  dirt_tpu's "pallas"
+backend is not ported yet (ROADMAP queue 2, K8).
 """
 
 import os
@@ -24,21 +32,26 @@ import torch
 
 from . import reference
 
-BACKENDS = ("blocks", "reference")
-GRAD_FOR_BACKEND = {"blocks": "blocks", "reference": "xla"}
+BACKENDS = ("blocks", "dense", "reference")
+GRAD_FOR_BACKEND = {"blocks": "blocks", "dense": "dense", "reference": "xla"}
 
 
-def default_backend(device):
+def default_backend(device, num_faces=None):
     env = os.environ.get("DIRT_TPU_TORCH_BACKEND", "auto")
     if env != "auto":
         return env
-    return "blocks" if torch.device(device).type == "cuda" else "reference"
+    if torch.device(device).type != "cuda":
+        return "reference"
+    threshold = int(os.environ.get("DIRT_TPU_TORCH_BLOCKS_THRESHOLD", "0"))
+    if num_faces is not None and num_faces <= threshold:
+        return "dense"
+    return "blocks"
 
 
-def resolve_backend(backend, device):
-    chosen = backend or default_backend(device)
+def resolve_backend(backend, device, num_faces=None):
+    chosen = backend or default_backend(device, num_faces)
     if chosen == "auto":
-        chosen = default_backend(device)
+        chosen = default_backend(device, num_faces)
     if chosen not in BACKENDS:
         raise ValueError(f"unknown backend {chosen!r}; expected one of "
                          f"{BACKENDS} or None/'auto'")
@@ -71,9 +84,13 @@ def forward_batch(background, vertices, vertex_colors, faces, backend=None):
     vertices = vertices.float().contiguous()
     vertex_colors = vertex_colors.float().contiguous()
     faces = faces.to(torch.int32).contiguous()
-    chosen = resolve_backend(backend, background.device)
+    chosen = resolve_backend(backend, background.device, faces.shape[1])
     if chosen == "reference":
         return reference.rasterise_batch(
+            background, vertices, vertex_colors, faces)
+    if chosen == "dense":
+        from . import forward_dense
+        return forward_dense.rasterise_batch(
             background, vertices, vertex_colors, faces)
     from . import forward_blocks
     return forward_blocks.rasterise_batch(

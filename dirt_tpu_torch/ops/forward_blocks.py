@@ -105,7 +105,7 @@ HIT_PLANE = _cuda.Kernel(
     "hit_plane", "dirt_hit_plane",
     [_cuda.ptr, _cuda.ptr] + [_cuda.i32] * 13 + [_cuda.f32] * 2
     + [_cuda.ptr],
-    replaces="dirt_tpu/ops/forward_blocks.py:322")
+    replaces="dirt_tpu/ops/forward_blocks.py:322", source="hit_plane.cu")
 
 
 def _edge_keep(row, edge_cols, tile_r0, tile_c0, tile_h, tile_w, height,
@@ -208,46 +208,22 @@ def hit_matrix(face_data, bbox_cols, num_blocks, chunk,
 RASTER_SWEEP = _cuda.Kernel(
     "raster_sweep", "dirt_raster_sweep",
     [_cuda.ptr] * 5 + [_cuda.i32] * 8 + [_cuda.f32] * 2 + [_cuda.ptr],
-    replaces="dirt_tpu/ops/forward_blocks.py:576")
-
-# Plain sweep: tiles per vectorised step, bounding the [tiles, chunk, PIX]
-# planes at ~2^25 elements.
-_PLAIN_ELEMENTS = 1 << 25
-
+    replaces="dirt_tpu/ops/forward_blocks.py:576",
+    source="raster_sweep.cu")
 
 def raster_sweep_plain(face_table, starts, counts, block_ids, channels,
                        height, width, tiles_x, num_tiles, tile_h, tile_w):
     """Per-pixel state [B*T, C+9, PIX] of the CSR sweep: tile bt sweeps
     the face blocks block_ids[starts[bt] : starts[bt] + counts[bt]] in
-    order through forward_dense._chunk_candidates / merge_state.  All
-    tiles advance one visit per step (visit m of every tile whose run is
-    that long), which keeps each tile's merge order."""
-    device = face_table.device
-    chunk, width_d = face_table.shape[1], face_table.shape[2]
-    pix = tile_h * tile_w
-    ns = channels + 9
-    runs = starts.shape[0]
-    state = forward_dense.init_state(channels, pix, (runs,), device)
-    step = max(1, _PLAIN_ELEMENTS // (chunk * pix))
-    for r0 in range(0, runs, step):
-        r1 = min(runs, r0 + step)
-        tile = torch.arange(r0, r1, device=device) % num_tiles
-        xg, yg = forward_dense.pixel_ndc(
-            (tile // tiles_x) * tile_h, (tile % tiles_x) * tile_w,
-            height, width, tile_h, tile_w)                 # [R, 1, PIX]
-        st, n = starts[r0:r1].long(), counts[r0:r1]
-        part = state[r0:r1]
-        for m in range(int(n.max())):
-            live = m < n
-            bid = block_ids[(st + m).clamp(max=block_ids.shape[0] - 1)]
-            rows = face_table[bid.long()]                  # [R, K, D]
-            col = lambda i: rows[:, :, i:i + 1]
-            cand, bd, bo = forward_dense._chunk_candidates(
-                col, xg, yg, channels)
-            merged = forward_dense.merge_state(part, cand, bd, bo, ns)
-            part = torch.where(live[:, None, None], merged, part)
-        state[r0:r1] = part
-    return state
+    order through forward_dense._chunk_candidates / merge_state."""
+    last = block_ids.shape[0] - 1
+
+    def visit_rows(r0, r1, m):
+        bid = block_ids[(starts[r0:r1].long() + m).clamp(max=last)]
+        return face_table[bid.long()]
+    return forward_dense.sweep_plain(visit_rows, counts, channels, height,
+                                     width, tiles_x, num_tiles, tile_h,
+                                     tile_w, face_table.shape[1])
 
 
 def raster_sweep(face_table, starts, counts, block_ids, channels,

@@ -1,11 +1,22 @@
-"""Shared sweep math of the dense forward (from dirt_tpu/ops/forward_dense.py).
+"""The "dense" forward backend and the sweep math every forward shares
+(PyTorch port of dirt_tpu/ops/forward_dense.py).
 
-Only the math the block-binned schedule shares is ported: the pixel-centre
-rows of a tile, the initial per-pixel state, one dense chunk sweep with its
-lexicographic (depth, original index) winner pick in the COVER_FAST
-coverage form, the GL_LESS merge, and the postprocess that un-tiles the
-state and does the single division.  The "dense" backend's own kernels are
-not on the main path (ROADMAP queue 2).
+  * forward_pallas._pack_faces gives each tile its exact face list: the
+    faces whose bboxes overlap it, first, in draw order, under the
+    per-tile cap (forward_pallas.tile_face_cap) whose overflow is counted
+    in RasterAux.dropped;
+  * the sweep (dense_sweep, kernel K7 on CUDA) walks each tile's list and
+    keeps the lexicographic (depth, original index) winner per pixel:
+    dirt_tpu's _chunk_candidates + merge_state over the list's live
+    chunks;
+  * finalize un-tiles the state and does the one division (shared with
+    the block-binned backend, ops/forward_blocks.py, whose sweep K1 runs
+    the same per-face arithmetic).
+
+Tile shape and chunk are parameters.  The default tile is this port's GPU
+shape (16x16 pixels, one thread per pixel); the tests call the backend at
+dirt_tpu's shapes (16x256, or 32x128 when the image is at most 128 wide)
+to compare with it.
 
 Packed per-pixel state rows (all float32; ints are exact below 2^24):
   [0:C]  interpolation numerators      [C:C+3]  E0, E1, E2 of the winner
@@ -15,9 +26,28 @@ Packed per-pixel state rows (all float32; ints are exact below 2^24):
 
 import torch
 
-from . import forward_pallas, reference
+from . import _cuda, forward_pallas, reference
 
 _BASE = forward_pallas._BASE
+TILE_H = 16
+TILE_W = 16
+CHUNK = 64
+# Plain sweeps: tiles per vectorised step, bounding the [tiles, chunk, PIX]
+# planes at ~2^25 elements.
+_PLAIN_ELEMENTS = 1 << 25
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def tile_shape(height, width):
+    """The dense backend's GPU tile: 16x16 pixels, one thread per pixel of
+    kernel K7 at any image size.  (dirt_tpu's TPU shapes are 16x256, or
+    32x128 for images at most 128 wide; rasterise_batch takes them as
+    parameters.)"""
+    del height, width
+    return TILE_H, TILE_W
 
 
 def pixel_ndc(tile_row, tile_col, height, width, tile_h, tile_w):
@@ -131,3 +161,132 @@ def finalize(state, background, height, width, tiles_y, tiles_x,
     aux = reference.RasterAux(face_index=orig, indices=indices,
                               barycentric=bary, clip_w=clip_w)
     return pixels, aux
+
+
+# --------------------------------------------------------------------------
+# K7: the sweep over per-tile face lists
+# --------------------------------------------------------------------------
+
+DENSE_SWEEP = _cuda.Kernel(
+    "dense_sweep", "dirt_dense_sweep",
+    [_cuda.ptr] * 4 + [_cuda.i32] * 9 + [_cuda.f32] * 2 + [_cuda.ptr],
+    replaces=("dirt_tpu/ops/forward_dense.py:290, "
+              "dirt_tpu/ops/forward_dense.py:262"),
+    source="dense_sweep.cu")
+
+
+def sweep_plain(visit_rows, visits, channels, height, width, tiles_x,
+                num_tiles, tile_h, tile_w, chunk):
+    """Per-pixel state [R, C+9, PIX] of R tile runs, each sweeping
+    visits[r] chunks of face-table rows through _chunk_candidates and
+    merge_state, in order.  visit_rows(r0, r1, m) gives visit m of runs
+    r0..r1-1 as [r1 - r0, chunk, D].  All runs advance one visit per step
+    (visit m of every run that long), which keeps each run's merge
+    order."""
+    runs = visits.shape[0]
+    device = visits.device
+    ns = channels + 9
+    state = init_state(channels, tile_h * tile_w, (runs,), device)
+    step = max(1, _PLAIN_ELEMENTS // (chunk * tile_h * tile_w))
+    for r0 in range(0, runs, step):
+        r1 = min(runs, r0 + step)
+        tile = torch.arange(r0, r1, device=device) % num_tiles
+        xg, yg = pixel_ndc((tile // tiles_x) * tile_h,
+                           (tile % tiles_x) * tile_w,
+                           height, width, tile_h, tile_w)   # [R, 1, PIX]
+        n = visits[r0:r1]
+        part = state[r0:r1]
+        for m in range(int(n.max())):
+            rows = visit_rows(r0, r1, m)                    # [R, K, D]
+            col = lambda i: rows[:, :, i:i + 1]
+            cand, bd, bo = _chunk_candidates(col, xg, yg, channels)
+            merged = merge_state(part, cand, bd, bo, ns)
+            part = torch.where((m < n)[:, None, None], merged, part)
+        state[r0:r1] = part
+    return state
+
+
+def dense_sweep_plain(face_table, face_ids, counts, channels, height, width,
+                      tiles_x, num_tiles, tile_h, tile_w, chunk):
+    """Per-pixel state [B*T, C+9, PIX]: tile run bt sweeps the live chunks
+    (ceil(counts[bt] / chunk)) of its face list face_ids[bt], as
+    dirt_tpu's fused dense kernel does; a live chunk's tail slots hold
+    faces that miss the tile and cover nothing."""
+    def visit_rows(r0, r1, m):
+        ids = face_ids[r0:r1, m * chunk:(m + 1) * chunk]
+        return face_table[ids.long()]
+    return sweep_plain(visit_rows, (counts + (chunk - 1)) // chunk,
+                       channels, height, width, tiles_x, num_tiles, tile_h,
+                       tile_w, chunk)
+
+
+def dense_sweep(face_table, face_ids, counts, channels, height, width,
+                tiles_x, num_tiles, tile_h, tile_w, chunk):
+    """K7 wrapper: dense_sweep_plain's state, by the CUDA kernel for CUDA
+    tensors and by the plain version for CPU tensors.
+
+    face_table [B*F', D] f32 (the images' tables stacked); face_ids
+    [B*T, slots] int32 rows of it, batch-folded; counts [B*T] int32."""
+    if not _cuda.on_cuda(face_table, face_ids, counts):
+        return dense_sweep_plain(face_table, face_ids, counts, channels,
+                                 height, width, tiles_x, num_tiles, tile_h,
+                                 tile_w, chunk)
+    runs, slots = face_ids.shape
+    width_d = face_table.shape[1]
+    pix = tile_h * tile_w
+    if pix > 1024:
+        raise ValueError(f"dense_sweep runs one thread per pixel: a "
+                         f"{tile_h}x{tile_w} tile exceeds 1024 threads")
+    state = torch.empty(runs, channels + 9, pix, device=face_table.device)
+    DENSE_SWEEP(
+        _cuda.check("face_table", face_table, torch.float32),
+        _cuda.check("face_ids", face_ids, torch.int32),
+        _cuda.check("counts", counts, torch.int32, (runs,)),
+        _cuda.check("state", state, torch.float32),
+        runs, slots, num_tiles, tiles_x, tile_h, tile_w, chunk, width_d,
+        channels, 2.0 / width, 2.0 / height, _cuda.stream())
+    return state
+
+
+def pack(vertices, vertex_colors, faces, height, width, tile_h, tile_w,
+         chunk):
+    """The dense schedule for a batch: (face_table [B*F', D], face_ids
+    [B*T, slots] int32 rows of it, counts [B*T] int32, dropped [B]), the
+    per-tile lists of forward_pallas._pack_faces folded over the batch."""
+    batch, num_faces = faces.shape[:2]
+    tiles_y, tiles_x = _cdiv(height, tile_h), _cdiv(width, tile_w)
+    num_chunks = max(1, _cdiv(forward_pallas.tile_face_cap(num_faces), chunk))
+    face_data, face_ids, counts, dropped = forward_pallas._pack_faces(
+        vertices, vertex_colors, faces, height, width, num_chunks, tiles_y,
+        tiles_x, chunk, tile_h, tile_w)
+    rows = face_data.shape[1]
+    boff = torch.arange(batch, dtype=torch.int32, device=faces.device) * rows
+    return (face_data.reshape(batch * rows, -1),
+            (face_ids + boff[:, None, None]).reshape(batch * tiles_y * tiles_x,
+                                                     -1),
+            counts.reshape(-1), dropped)
+
+
+def rasterise_batch(background, vertices, vertex_colors, faces,
+                    tile_h=None, tile_w=None, chunk=CHUNK):
+    """Batched forward rasterisation through the dense backend.
+
+    Returns (pixels [B, H, W, C], reference.RasterAux) with `dropped`,
+    the per-image hits beyond the per-tile cap; visibility matches the
+    other backends bit-exactly on tie-free scenes."""
+    batch, height, width, channels = background.shape
+    if faces.shape[1] == 0:
+        return reference.rasterise_batch(background, vertices, vertex_colors,
+                                         faces)
+    if tile_h is None or tile_w is None:
+        tile_h, tile_w = tile_shape(height, width)
+    tiles_y, tiles_x = _cdiv(height, tile_h), _cdiv(width, tile_w)
+    num_tiles = tiles_y * tiles_x
+    face_table, face_ids, counts, dropped = pack(
+        vertices, vertex_colors, faces, height, width, tile_h, tile_w, chunk)
+    state = dense_sweep(face_table, face_ids, counts, channels, height, width,
+                        tiles_x, num_tiles, tile_h, tile_w, chunk)
+    state = state.reshape(batch, num_tiles, channels + 9, tile_h * tile_w)
+    pixels, aux = finalize(state, background, height, width, tiles_y,
+                           tiles_x, tile_h=tile_h, tile_w=tile_w)
+    return pixels, aux._replace(dropped=dropped)

@@ -1,8 +1,10 @@
-"""The forward face-table layout (from dirt_tpu/ops/forward_pallas.py).
+"""The forward face table and the exact per-tile packing (from
+dirt_tpu/ops/forward_pallas.py).
 
-Only the table is ported: the "pallas" backend's per-face kernel is not on
-the main path (ROADMAP queue 2).  The block-binned schedule
-(ops/forward_blocks.py) and its sweep kernel read this layout.
+The block-binned schedule (ops/forward_blocks.py) reads the table; the
+"dense" backend (ops/forward_dense.py) reads it through the per-tile
+face lists of _pack_faces.  The "pallas" backend's per-face kernel is not
+ported yet (ROADMAP queue 2, K8).
 
 Face-table layout, float32 per face:
   [0:9]   edge coefficients e (row-major 3x3)
@@ -13,6 +15,8 @@ Face-table layout, float32 per face:
                                corner0[0..C), corner1[0..C), corner2[0..C))
 Floats encode ints exactly below 2^24.
 """
+
+import os
 
 import torch
 
@@ -92,3 +96,70 @@ def _face_table(vertices, vertex_colors, faces, height, width, pad_rows):
     pad = _pad_row(_BASE + 3 * channels, device).expand(
         batch, pad_rows, _BASE + 3 * channels)
     return torch.cat([face_data, pad], dim=1)
+
+
+def tile_overlap(face_data, bbox_cols, tiles_y, tiles_x, tile_h, tile_w):
+    """[B, T, F] bool: the face's pixel bbox (columns `bbox_cols`, as
+    (r0, r1, c0, c1)) overlaps the tile."""
+    r0, r1, c0, c1 = (face_data[..., c] for c in bbox_cols)   # [B, F]
+    device = face_data.device
+    tile_r0 = torch.arange(tiles_y, dtype=torch.int32, device=device) * tile_h
+    tile_c0 = torch.arange(tiles_x, dtype=torch.int32, device=device) * tile_w
+    hit_rows = ((r0[:, None, :] <= (tile_r0 + tile_h - 1)[:, None])
+                & (r1[:, None, :] >= tile_r0[:, None]))      # [B, Ty, F]
+    hit_cols = ((c0[:, None, :] <= (tile_c0 + tile_w - 1)[:, None])
+                & (c1[:, None, :] >= tile_c0[:, None]))      # [B, Tx, F]
+    return (hit_rows[:, :, None, :] & hit_cols[:, None, :, :]).reshape(
+        face_data.shape[0], tiles_y * tiles_x, -1)
+
+
+def hits_first(overlap, max_rows):
+    """Per tile, the stable hits-first order of the rows of `overlap`
+    [B, T, F], cut to `max_rows`: (row ids [B, T, max_rows] int32, hit
+    counts [B, T] int32 before the cut)."""
+    order = torch.argsort((~overlap).to(torch.uint8), dim=-1, stable=True)
+    counts = overlap.sum(dim=-1, dtype=torch.int32)
+    return order[..., :max_rows].to(torch.int32).contiguous(), counts
+
+
+def _pack_faces(vertices, vertex_colors, faces, height, width, num_chunks,
+                tiles_y, tiles_x, chunk, tile_h, tile_w):
+    """Exact per-tile face lists for a batch: each tile lists the rows of
+    the face table whose bboxes overlap it FIRST, in draw order (a stable
+    sort of ~overlap), then the rest; only the first num_chunks * chunk
+    slots are kept.
+
+    The GPU layout holds per-tile row INDICES into one face table per
+    image, where dirt_tpu copies the rows themselves per tile
+    ([T, NC, CHUNK, D] floats, O(T * F * D)): face_data[b, face_ids[b, t]]
+    is dirt_tpu's tiled table of image b, tile t, bit for bit.
+
+    Returns:
+        face_data: [B, F', _BASE + 3C] float32, F' = max(num_chunks *
+            chunk, F) (padded rows never hit).
+        face_ids: [B, T, num_chunks * chunk] int32 rows of face_data.
+        counts: [B, T] int32 hit count per tile, cut to the slots.
+        dropped: [B] int32 hits beyond the slots, summed over tiles
+            (0 when the packing is exact; see RasterAux.dropped).
+    """
+    num_faces = faces.shape[1]
+    max_rows = num_chunks * chunk
+    pad_rows = max(max_rows, num_faces) - num_faces
+    face_data = _face_table(vertices, vertex_colors, faces, height, width,
+                            pad_rows)
+    overlap = tile_overlap(face_data, (20, 21, 22, 23), tiles_y, tiles_x,
+                           tile_h, tile_w)
+    face_ids, counts = hits_first(overlap, max_rows)
+    dropped = (counts - max_rows).clamp(min=0).sum(dim=-1, dtype=torch.int32)
+    return face_data, face_ids, counts.clamp(max=max_rows), dropped
+
+
+def tile_face_cap(num_faces):
+    """Face slots per tile of the dense packings: all faces up to
+    DIRT_TPU_TORCH_TILE_FACE_CAP (default 8192; <= 0 means no cap).  A
+    tile overlapped by more faces keeps the earliest-drawn `cap` of them
+    and counts the rest in RasterAux.dropped."""
+    cap = int(os.environ.get("DIRT_TPU_TORCH_TILE_FACE_CAP", "8192"))
+    if cap <= 0:
+        return num_faces
+    return min(num_faces, cap)

@@ -30,7 +30,9 @@ _BBOX = (0, 1, 2, 3)
 GRAD_REDUCE = _cuda.Kernel(
     "grad_reduce", "dirt_grad_reduce",
     [_cuda.ptr] * 6 + [_cuda.i32] * 17 + [_cuda.ptr],
-    replaces="dirt_tpu/ops/grad_blocks.py:147")
+    replaces=("dirt_tpu/ops/grad_blocks.py:147, "
+              "dirt_tpu/ops/grad_blocks.py:176"),
+    source="grad_reduce.cu")
 
 
 def _cdiv(a, b):
@@ -138,27 +140,9 @@ def rasterise_grad_batch(vertices, faces, pixels, grad_pixels, aux,
     cot = grad_pixels if color_cotangent is None else color_cotangent
 
     if num_faces == 0:
-        return backward.RasteriseGrads(
-            grad_background=cot,
-            grad_vertices=torch.zeros(batch, num_vertices, 4, device=device),
-            grad_vertex_colors=torch.zeros(batch, num_vertices, channels,
-                                           device=device),
-            debug=backward.debug_image(
-                torch.zeros(batch, height, width, dtype=torch.bool,
-                            device=device), grad_pixels))
-
-    n_planes = grad_dense.plane_layout(parts, channels)[0]
-    np_dma = _cdiv(n_planes, 8) * 8
-    if parts == "color":
-        planes, grad_background, dilated = grad_dense.prepass_and_planes(
-            pixels, grad_pixels, aux, parts)
-        planes = prepass_fused.tile_planes(planes, tile_h, tile_w, np_dma)
-    else:
-        planes, dilated = prepass_fused.plane_stack(
-            pixels, grad_pixels, aux, tile_h, tile_w, np_dma, parts=parts,
-            color_cotangent=color_cotangent)
-        covered_pre = aux.indices[..., 0] >= 0
-        grad_background = torch.where(covered_pre[..., None], 0.0, cot)
+        return grad_dense.no_face_grads(vertices, grad_pixels, cot)
+    planes, grad_background, dilated = prepass_fused.gradient_planes(
+        pixels, grad_pixels, aux, parts, color_cotangent, tile_h, tile_w)
 
     face_table, starts, counts, tile_ids, row_face = pack(
         vertices, faces, height, width, tile_h, tile_w, chunk)

@@ -1,9 +1,21 @@
-"""Shared gradient-reduction math (from dirt_tpu/ops/grad_dense.py).
+"""The tile-major "dense" gradient and the reduction math every gradient
+kernel shares (PyTorch port of dirt_tpu/ops/grad_dense.py).
 
-The per-face masked pixel reductions of the block-binned gradient, their
-plane-stack layout, the plain pre-pass that builds the stack, and the
-face-row -> vertex scatter.  The chunk-dense gradient kernel itself is not
-on the main path (ROADMAP queue 2).
+  * the per-face masked pixel reductions (_chunk_sums), their plane-stack
+    layout, the plain pre-pass that builds the stack, and the face-row ->
+    vertex scatter, shared with the block-binned gradient
+    (ops/grad_blocks.py);
+  * the dense gradient: prepass_fused.gradient_planes (kernel K2 on CUDA)
+    builds the tile-major planes, grad_tables._pack_grad_faces gives each
+    tile its exact hits-first face list, dense_grad_reduce (kernel K9 on
+    CUDA) writes one row of sums per (tile, list slot) -- zeros for the
+    slots of dead chunks -- and scatter_face_grads sums the rows into
+    vertex rows through each slot's original face (sorted_orig).
+
+The dense gradient's tile is 32x128 pixels, dirt_tpu's own: its rows are
+O(T x slots x d_out), ~9.4 MB at the bench size against ~151 MB at 16x16
+tiles, and K9 runs one thread per face slot, so the tile's pixel count
+is not bounded by a block's threads.
 
 For face f with original index fid, and corner k:
 
@@ -20,7 +32,20 @@ pre-pass zeroes outside coverage.
 
 import torch
 
-from . import backward
+from . import _cuda, backward, forward_pallas, grad_tables
+
+TILE_H = 32
+TILE_W = 128
+CHUNK = 64
+# Plain reduction: tiles per vectorised step, bounding the [tiles, chunk,
+# PIX] planes at ~2^25 elements.
+_PLAIN_ELEMENTS = 1 << 25
+# K9 stages planes in pieces of at most this many floats (48 KB).
+_PIECE_FLOATS = 12 * 1024
+
+
+def _cdiv(a, b):
+    return -(-a // b)
 
 
 def plane_layout(parts, channels):
@@ -137,3 +162,152 @@ def scatter_face_grads(face_grads, seg, batch, num_vertices, channels,
         return grad_vertices, torch.zeros(batch, num_vertices, channels,
                                           device=face_grads.device)
     return grad_vertices, summed[..., 3:]
+
+
+def no_face_grads(vertices, grad_pixels, cotangent):
+    """The gradients of a mesh with no faces: the cotangent passes to the
+    background, nothing reaches the vertices."""
+    batch, height, width, _ = grad_pixels.shape
+    num_vertices = vertices.shape[1]
+    device = grad_pixels.device
+    return backward.RasteriseGrads(
+        grad_background=cotangent,
+        grad_vertices=torch.zeros(batch, num_vertices, 4, device=device),
+        grad_vertex_colors=torch.zeros(batch, num_vertices,
+                                       cotangent.shape[-1], device=device),
+        debug=backward.debug_image(
+            torch.zeros(batch, height, width, dtype=torch.bool,
+                        device=device), grad_pixels))
+
+
+# --------------------------------------------------------------------------
+# K9: the tile-major reduction
+# --------------------------------------------------------------------------
+
+DENSE_GRAD_REDUCE = _cuda.Kernel(
+    "dense_grad_reduce", "dirt_dense_grad_reduce",
+    [_cuda.ptr] * 5 + [_cuda.i32] * 20 + [_cuda.ptr],
+    replaces=("dirt_tpu/ops/grad_dense.py:193, "
+              "dirt_tpu/ops/grad_dense.py:170"),
+    source="dense_grad.cu")
+
+
+def dense_grad_reduce_plain(face_table, face_ids, counts, planes, channels,
+                            parts, chunk):
+    """Rows [B*T, slots, d_out]: for every live chunk of tile run bt's face
+    list (chunk c with c * chunk < counts[bt]), _chunk_sums of the chunk's
+    faces over the tile's planes; zeros for the dead chunks."""
+    runs, slots = face_ids.shape
+    pix = planes.shape[-1]
+    out = torch.zeros(runs, slots, d_out_for(parts, channels),
+                      device=planes.device)
+    step = max(1, _PLAIN_ELEMENTS // (chunk * pix))
+    for r0 in range(0, runs, step):
+        r1 = min(runs, r0 + step)
+        n = counts[r0:r1]
+        tile = planes[r0:r1]
+        plane = lambda i: tile[:, i:i + 1, :]              # [R, 1, PIX]
+        for c in range(_cdiv(int(n.max()), chunk)):
+            rows = face_table[face_ids[r0:r1, c * chunk:(c + 1) * chunk]
+                              .long()]                     # [R, K, _DF]
+            col = lambda i: rows[:, :, i:i + 1]
+            sums = _chunk_sums(col, plane, channels, parts)
+            out[r0:r1, c * chunk:(c + 1) * chunk] = torch.where(
+                (c * chunk < n)[:, None, None], sums, 0.0)
+    return out
+
+
+def dense_grad_reduce(face_table, face_ids, counts, planes, channels, parts,
+                      chunk):
+    """K9 wrapper: dense_grad_reduce_plain's rows, by the CUDA kernel for
+    CUDA tensors and by the plain version for CPU tensors.
+
+    face_table [B*F', _DF] f32 (the images' gradient tables stacked);
+    face_ids [B*T, slots] int32 rows of it, batch-folded, slots a multiple
+    of `chunk`; counts [B*T] int32; planes [B*T, NP, PIX] f32 in
+    plane_layout(parts, channels) order (NP may include zero pad planes)."""
+    if not _cuda.on_cuda(face_table, face_ids, counts, planes):
+        return dense_grad_reduce_plain(face_table, face_ids, counts, planes,
+                                       channels, parts, chunk)
+    runs, slots = face_ids.shape
+    if chunk > 1024:
+        raise ValueError(f"dense_grad_reduce runs one thread per face slot: "
+                         f"a {chunk}-slot chunk exceeds 1024 threads")
+    if slots % chunk:
+        raise ValueError(f"{slots} slots are not whole {chunk}-slot chunks")
+    np_stride, pix = planes.shape[1], planes.shape[2]
+    n_planes, L = plane_layout(parts, channels)
+    if np_stride < n_planes:
+        raise ValueError(f"planes hold {np_stride} planes, the {parts!r} "
+                         f"layout needs {n_planes}")
+    piece = min(pix, max(32, _PIECE_FLOATS // n_planes // 32 * 32))
+    d_out = d_out_for(parts, channels)
+    layout = [L.get(name, -1) for name in (
+        "ax", "ay", "px", "py", "bary_d", "face_d", "bary_pre", "face_pre",
+        "grad")]
+    out = torch.empty(runs, slots, d_out, device=planes.device)
+    DENSE_GRAD_REDUCE(
+        _cuda.check("face_table", face_table, torch.float32),
+        _cuda.check("face_ids", face_ids, torch.int32),
+        _cuda.check("counts", counts, torch.int32, (runs,)),
+        _cuda.check("planes", planes, torch.float32, (runs, np_stride, pix)),
+        _cuda.check("out", out, torch.float32),
+        runs, slots, chunk, face_table.shape[1], n_planes, np_stride, pix,
+        piece, d_out, channels, int(parts in ("all", "position")), *layout,
+        _cuda.stream())
+    return out
+
+
+def pack(vertices, faces, height, width, tile_h, tile_w, chunk):
+    """The dense gradient schedule for a batch: (face_table [B*F', _DF],
+    face_ids [B*T, slots] int32 rows of it, counts [B*T] int32,
+    sorted_orig [B, T * slots] int32), the per-tile lists of
+    grad_tables._pack_grad_faces with the ids folded over the batch."""
+    batch, num_faces = faces.shape[:2]
+    tiles_y, tiles_x = _cdiv(height, tile_h), _cdiv(width, tile_w)
+    num_chunks = max(1, _cdiv(forward_pallas.tile_face_cap(num_faces), chunk))
+    face_data, face_ids, counts, sorted_orig = grad_tables._pack_grad_faces(
+        vertices, faces, height, width, num_chunks, tiles_y, tiles_x, chunk,
+        tile_h, tile_w)
+    rows = face_data.shape[1]
+    boff = torch.arange(batch, dtype=torch.int32, device=faces.device) * rows
+    return (face_data.reshape(batch * rows, grad_tables._DF),
+            (face_ids + boff[:, None, None]).reshape(batch * tiles_y * tiles_x,
+                                                     -1),
+            counts.reshape(-1), sorted_orig.reshape(batch, -1))
+
+
+def rasterise_grad_batch(vertices, faces, pixels, grad_pixels, aux,
+                         parts="all", color_cotangent=None,
+                         tile_h=TILE_H, tile_w=TILE_W, chunk=CHUNK):
+    """Tile-major dense gradient assembly; the contract of
+    backward.rasterise_grad_batch (all arguments [B, ...]), including
+    `parts` and the fused-deferred `color_cotangent`."""
+    from . import prepass_fused
+    batch = pixels.shape[0]
+    cot = grad_pixels if color_cotangent is None else color_cotangent
+    channels = cot.shape[-1]
+    num_vertices = vertices.shape[1]
+    if faces.shape[1] == 0:
+        return no_face_grads(vertices, grad_pixels, cot)
+    planes, grad_background, dilated = prepass_fused.gradient_planes(
+        pixels, grad_pixels, aux, parts, color_cotangent, tile_h, tile_w)
+    face_table, face_ids, counts, sorted_orig = pack(
+        vertices, faces, pixels.shape[1], pixels.shape[2], tile_h, tile_w,
+        chunk)
+    face_grads = dense_grad_reduce(face_table, face_ids, counts, planes,
+                                   channels, parts, chunk)
+
+    # Every (tile, slot) row goes to its original face's corners; padded
+    # slots map to face 0 and carry exact zeros.
+    d_out = d_out_for(parts, channels)
+    face_grads = face_grads.reshape(batch, -1, 3, d_out // 3)
+    corner_vids = torch.take_along_dim(faces, sorted_orig[..., None].long(),
+                                       dim=1)
+    boff = torch.arange(batch, dtype=torch.int32, device=faces.device)
+    grad_vertices, grad_vertex_colors = scatter_face_grads(
+        face_grads, corner_vids + (boff * num_vertices)[:, None, None], batch,
+        num_vertices, channels, parts)
+    return backward.RasteriseGrads(
+        grad_background, grad_vertices, grad_vertex_colors,
+        backward.debug_image(dilated, grad_pixels))

@@ -1,6 +1,8 @@
-"""The gradient face table (from dirt_tpu/ops/grad_tables.py).
+"""The gradient face table and its per-tile packing (from
+dirt_tpu/ops/grad_tables.py).
 
-Per-face constants for the block-binned gradient reduction, with pixel
+Per-face constants for the gradient reductions (block-binned,
+ops/grad_blocks.py, and tile-major dense, ops/grad_dense.py), with pixel
 bboxes widened one pixel for dilation support.  Columns:
   [0:4]  bbox (r0, r1, c0, c1)   [4] original face index   [5] valid
   [6:9]  corner clip x           [9:12] corner clip y
@@ -62,3 +64,29 @@ def _grad_face_table(vertices, faces, height, width, pad_rows):
     pad[0] = pad[2] = float(_BIG)
     pad[1] = pad[3] = pad[4] = -1.0
     return torch.cat([face_data, pad.expand(batch, pad_rows, _DF)], dim=1)
+
+
+def _pack_grad_faces(vertices, faces, height, width, num_chunks, tiles_y,
+                     tiles_x, chunk, tile_h, tile_w):
+    """Exact per-tile hits-first face lists of the gradient table (see
+    forward_pallas._pack_faces: row indices into one table per image).
+
+    Returns (face_data [B, F', _DF] f32, face_ids [B, T, num_chunks *
+    chunk] int32 rows of it, counts [B, T] int32 cut to the slots,
+    sorted_orig [B, T, num_chunks * chunk] int32 original face of each
+    slot, 0 for padded rows).  A cut here is not counted: the forward over
+    the same geometry reports it (its narrower bboxes give a near-subset
+    of these lists) in RasterAux.dropped.
+    """
+    num_faces = faces.shape[1]
+    max_rows = num_chunks * chunk
+    pad_rows = max(max_rows, num_faces) - num_faces
+    face_data = _grad_face_table(vertices, faces, height, width, pad_rows)
+    overlap = forward_pallas.tile_overlap(face_data, (0, 1, 2, 3), tiles_y,
+                                          tiles_x, tile_h, tile_w)
+    face_ids, counts = forward_pallas.hits_first(overlap, max_rows)
+    base_orig = torch.cat([
+        torch.arange(num_faces, dtype=torch.int32, device=faces.device),
+        torch.zeros(pad_rows, dtype=torch.int32, device=faces.device)])
+    return (face_data, face_ids, counts.clamp(max=max_rows),
+            base_orig[face_ids.long()])

@@ -23,7 +23,7 @@ from . import _cuda, grad_dense
 GRAD_PREPASS = _cuda.Kernel(
     "grad_prepass", "dirt_grad_prepass",
     [_cuda.ptr] * 9 + [_cuda.i32] * 11 + [_cuda.ptr],
-    replaces="dirt_tpu/ops/prepass_fused.py:70")
+    replaces="dirt_tpu/ops/prepass_fused.py:70", source="grad_prepass.cu")
 
 
 def _cdiv(a, b):
@@ -93,3 +93,30 @@ def plane_stack(pixels, grad_pixels, aux, tile_h, tile_w, np_dma,
         batch, height, width, channels, cot_channels, tile_h, tile_w,
         tiles_x, num_tiles, np_dma, int(parts == "all"), _cuda.stream())
     return planes, dilated
+
+
+def gradient_planes(pixels, grad_pixels, aux, parts, color_cotangent,
+                    tile_h, tile_w):
+    """The tile-major plane stack a gradient reduction reads, with the
+    background gradient and the dilation mask: (planes [B*T, np_dma, PIX]
+    in grad_dense.plane_layout(parts) order, np_dma the plane count
+    rounded up to 8; grad_background [B, H, W, C']; dilated [B, H, W]).
+
+    parts "all" / "position" build it with plane_stack (kernel K2 on
+    CUDA); parts "color" needs no Scharr or dilation and tiles the plain
+    pre-pass."""
+    channels = (grad_pixels if color_cotangent is None
+                else color_cotangent).shape[-1]
+    n_planes = grad_dense.plane_layout(parts, channels)[0]
+    np_dma = _cdiv(n_planes, 8) * 8
+    if parts == "color":
+        planes, grad_background, dilated = grad_dense.prepass_and_planes(
+            pixels, grad_pixels, aux, parts)
+        return (tile_planes(planes, tile_h, tile_w, np_dma), grad_background,
+                dilated)
+    planes, dilated = plane_stack(pixels, grad_pixels, aux, tile_h, tile_w,
+                                  np_dma, parts=parts,
+                                  color_cotangent=color_cotangent)
+    cot = grad_pixels if color_cotangent is None else color_cotangent
+    covered_pre = aux.indices[..., 0] >= 0
+    return planes, torch.where(covered_pre[..., None], 0.0, cot), dilated

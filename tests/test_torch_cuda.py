@@ -5,10 +5,12 @@ elsewhere.  On the card, run them without the JAX test configuration:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
-The checks are chip_smoke.py's, at small shapes: the hit plane, the sweep
-state and the plane stack bitwise, the gradient rows within 1e-5
-(normalised), and the main path against the native oracle, the reference
-backend and the plain gradient, with every kernel launched.
+The checks are chip_smoke.py's, at small shapes: the hit plane, both
+sweeps' states and the plane stack bitwise, both reductions' rows within
+1e-5 (normalised); the blocks and dense paths against the native oracle,
+each other and the plain gradient, and the deferred path on both
+backends against the two-call form, with every kernel of each path
+launched.
 """
 
 import pathlib
@@ -38,14 +40,24 @@ def test_kernels_match_plain(device, scene):
         "crossing": lambda: chip_smoke.crossing_scene(device, size=48,
                                                       num_faces=60),
     }[scene]
-    errors, _ = chip_smoke.compare_kernels(scene, make())
+    errors, _, _ = chip_smoke.compare_kernels(scene, make())
     assert errors["hit_plane"] == errors["raster_sweep"] == 0.0
-    assert errors["grad_prepass"] == 0.0
+    assert errors["dense_sweep"] == errors["grad_prepass"] == 0.0
 
 
-def test_main_path(device):
+@pytest.mark.parametrize("backend", ["blocks", "dense"])
+def test_main_path(device, backend):
     launches = chip_smoke.check_main_path(
-        chip_smoke.bench_scene(2, 64, 16, device))
+        chip_smoke.bench_scene(2, 64, 16, device), backend)
+    assert sorted(launches) == sorted(chip_smoke.PATH_KERNELS[backend])
+    assert all(n > 0 for n in launches.values())
+
+
+@pytest.mark.parametrize("backend", ["blocks", "dense"])
+def test_deferred_path(device, backend):
+    scene = chip_smoke.bench_scene(2, 64, 16, device)
+    launches = chip_smoke.check_deferred_path(
+        chip_smoke.deferred_scene(scene), backend)
     assert all(n > 0 for n in launches.values())
 
 
@@ -109,3 +121,51 @@ def test_grad_reduce_parts_and_wide_cotangent(device, parts, cot_channels):
     want = grad_blocks.grad_reduce_plain(*args)
     scale = max(float(want.abs().max()), 1.0)
     assert float((rows - want).abs().max()) / scale <= 1e-5
+
+
+@pytest.mark.parametrize("parts,cot_channels", [
+    ("all", 10), ("position", 3), ("color", 3)])
+def test_dense_grad_reduce_parts_and_pieces(device, parts, cot_channels):
+    # 32x128 tiles stage their planes in several pieces; ten colour
+    # channels take three passes.
+    from dirt_tpu_torch.ops import dispatch, grad_dense, prepass_fused
+    bg, v, c, f, gp = _soup(device, 3, size=72)
+    px, aux = dispatch.forward_batch(bg, v, c, f, "dense")
+    cot = (torch.randn(*gp.shape[:3], cot_channels, device=device)
+           if parts == "all" else None)
+    planes, _, _ = prepass_fused.gradient_planes(px, gp, aux, parts, cot,
+                                                 32, 128)
+    table, face_ids, counts, _ = grad_dense.pack(v, f, bg.shape[1],
+                                                 bg.shape[2], 32, 128, 64)
+    args = (table, face_ids, counts, planes, cot_channels, parts, 64)
+    rows = grad_dense.dense_grad_reduce(*args)
+    want = grad_dense.dense_grad_reduce_plain(*args)
+    scale = max(float(want.abs().max()), 1.0)
+    assert float((rows - want).abs().max()) / scale <= 1e-5
+
+
+@pytest.mark.parametrize("channels", [1, 10])
+def test_dense_sweep_any_channel_count(device, channels):
+    from dirt_tpu_torch.ops import dispatch, forward_dense
+    bg, v, c, f, _ = _soup(device, channels)
+    h, w = bg.shape[1:3]
+    table, face_ids, counts, _ = forward_dense.pack(v, c, f, h, w, 16, 16,
+                                                    64)
+    args = (table, face_ids, counts, channels, h, w, -(-w // 16),
+            -(-h // 16) * -(-w // 16), 16, 16, 64)
+    assert torch.equal(forward_dense.dense_sweep(*args),
+                       forward_dense.dense_sweep_plain(*args))
+    _, aux_d = dispatch.forward_batch(bg, v, c, f, "dense")
+    _, aux_r = dispatch.forward_batch(bg, v, c, f, "reference")
+    assert torch.equal(aux_d.face_index, aux_r.face_index)
+
+
+def test_numpy_inputs_run_on_the_card(device):
+    import dirt_tpu_torch
+    from dirt_tpu_torch import matrices
+    bg, v, c, f, _ = (t.cpu().numpy() for t in _soup(device, 3))
+    pixels = dirt_tpu_torch.rasterise_batch(bg, v, c, f)
+    assert pixels.device.type == "cuda"
+    assert matrices.perspective_projection(0.1, 20., 0.25, 1.).is_cuda
+    assert dirt_tpu_torch.rasterise(bg[0], v[0], c[0], f[0],
+                                    device="cpu").device.type == "cpu"

@@ -3,20 +3,26 @@
 * `import dirt_tpu_torch` must not import jax (the port runs where jax is
   not installed).
 * chip_smoke.py must fail, printing no result, where no CUDA device is
-  available, and when it is run without the rest of the repository.
+  available, and when it is run without the rest of the repository; the
+  segment sum it times as the reductions' library form computes their
+  function.
 * Each kernel wrapper names the TPU kernel it replaces, and its CUDA source
   says so in its header.
 * CPU tensors run the plain versions; tensors on any other non-CUDA device
   raise instead of falling back.
+* Entry points given numpy inputs run on the card: without one they
+  raise, unless the caller asks for the CPU with device="cpu".
 """
 
 import ast
+import importlib.util
 import os
 import pathlib
 import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -32,6 +38,8 @@ def _env():
 
 def test_import_leaves_jax_out():
     code = ("import sys, dirt_tpu_torch, dirt_tpu_torch.ops.grad_blocks, "
+            "dirt_tpu_torch.ops.forward_dense, dirt_tpu_torch.ops.grad_dense, "
+            "dirt_tpu_torch.ops.dispatch, dirt_tpu_torch.devices, "
             "dirt_tpu_torch.utils.convert, dirt_tpu_torch.utils.oracle; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
             "if m.startswith('jax'))")
@@ -69,6 +77,42 @@ def test_chip_smoke_fails_without_cuda():
     assert "cuda" in proc.stdout.lower()
 
 
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  REPO / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_chip_smoke_segment_sum_is_the_reduction():
+    """chip_smoke times the segment sum as the library form of K3 and K9:
+    summed per face, the dense reduction's rows must equal it."""
+    from dirt_tpu_torch.ops import forward_blocks, grad_dense, prepass_fused
+    smoke = _chip_smoke()
+    background, clip, colors, faces, weights = smoke.bench_scene(
+        2, 64, 16, "cpu")
+    batch, height, width, channels = background.shape
+    num_faces = faces.shape[1]
+    pixels, aux = forward_blocks.rasterise_batch(background, clip, colors,
+                                                 faces)
+    planes = grad_dense.prepass_and_planes(pixels, weights, aux, "all")[0]
+    got = smoke.segment_sum(planes, clip, faces, channels)
+
+    th, tw, chunk = grad_dense.TILE_H, grad_dense.TILE_W, grad_dense.CHUNK
+    table, face_ids, counts, sorted_orig = grad_dense.pack(
+        clip, faces, height, width, th, tw, chunk)
+    tiled = prepass_fused.tile_planes(planes, th, tw, planes.shape[1])
+    rows = grad_dense.dense_grad_reduce_plain(table, face_ids, counts, tiled,
+                                              channels, "all", chunk)
+    keys = sorted_orig.long() + torch.arange(batch)[:, None] * num_faces
+    want = torch.zeros(batch * num_faces, rows.shape[-1]).index_add_(
+        0, keys.reshape(-1), rows.reshape(-1, rows.shape[-1]))
+    assert float(want.abs().max()) > 0
+    err = float((got - want).abs().max()) / max(float(want.abs().max()), 1.)
+    assert err <= 1e-5, err
+
+
 def test_chip_smoke_fails_alone(tmp_path):
     shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
     env = dict(os.environ)
@@ -81,18 +125,20 @@ def test_chip_smoke_fails_alone(tmp_path):
 
 
 def test_kernels_name_what_they_replace():
-    from dirt_tpu_torch.ops import (_cuda, forward_blocks, grad_blocks,
-                                    prepass_fused)
-    del forward_blocks, grad_blocks, prepass_fused  # register the kernels
-    assert sorted(_cuda.KERNELS) == ["grad_prepass", "grad_reduce",
+    from dirt_tpu_torch.ops import (_cuda, forward_blocks, forward_dense,
+                                    grad_blocks, grad_dense, prepass_fused)
+    del forward_blocks, forward_dense, grad_blocks, grad_dense, prepass_fused
+    assert sorted(_cuda.KERNELS) == ["dense_grad_reduce", "dense_sweep",
+                                     "grad_prepass", "grad_reduce",
                                      "hit_plane", "raster_sweep"]
     for name, kernel in _cuda.KERNELS.items():
-        path, line = kernel.replaces.split(":")
-        text = (REPO / path).read_text().splitlines()[int(line) - 1]
-        assert text.startswith("def _"), (name, text)
-        header = (PKG / "csrc" / f"{name}.cu").read_text()[:400]
-        assert text[4:text.index("(")] in header, name
-        assert f"{name}.cu" in _cuda.SOURCES
+        assert kernel.source in _cuda.SOURCES
+        header = (PKG / "csrc" / kernel.source).read_text()[:600]
+        for ref in kernel.replaces.split(", "):
+            path, line = ref.split(":")
+            text = (REPO / path).read_text().splitlines()[int(line) - 1]
+            assert text.startswith("def _"), (name, text)
+            assert text[4:text.index("(")] in header, (name, ref)
 
 
 def test_cpu_runs_plain_and_other_devices_raise():
@@ -119,3 +165,62 @@ def test_library_path_keys_on_sources():
     assert path.parent == _cuda.BUILD_DIR
     assert path.name.startswith("libdirt_kernels_") and path.suffix == ".so"
     assert path == _cuda.library_path()
+
+
+def _numpy_scene():
+    rng = np.random.RandomState(0)
+    v = rng.randn(10, 4).astype(np.float32)
+    v[:, 3] = np.abs(v[:, 3]) + 0.5
+    f = rng.randint(0, 10, size=(6, 3)).astype(np.int32)
+    c = rng.uniform(size=(10, 3)).astype(np.float32)
+    bg = rng.uniform(size=(8, 12, 3)).astype(np.float32)
+    return bg, v, c, f
+
+
+def _entry_points(bg, v, c, f, **kw):
+    import dirt_tpu_torch
+    from dirt_tpu_torch import matrices
+    batch = lambda a: a[None]
+    shade = lambda gb: gb * 2.0
+    return [
+        lambda: dirt_tpu_torch.rasterise(bg, v, c, f, **kw),
+        lambda: dirt_tpu_torch.rasterise_batch(*map(batch, (bg, v, c, f)),
+                                               **kw),
+        lambda: dirt_tpu_torch.rasterise_batch_with_aux(
+            *map(batch, (bg, v, c, f)), **kw)[0],
+        lambda: dirt_tpu_torch.rasterise_deferred(bg, v, c, f, shade, **kw),
+        lambda: dirt_tpu_torch.rasterise_batch_deferred(
+            *map(batch, (bg, v, c, f)), shade, **kw),
+        lambda: dirt_tpu_torch.rasterise_grad_debug(bg, v, c, f, bg,
+                                                    **kw)[1],
+        lambda: matrices.perspective_projection(0.1, 20., 0.25, 1., **kw),
+        lambda: matrices.compose(matrices.translation([1., 2., 3.], **kw),
+                                 matrices.scale(np.ones(3), **kw)),
+        lambda: matrices.rodrigues([0.1, 0.2, 0.3], **kw),
+    ]
+
+
+@pytest.mark.parametrize("entry", range(9))
+def test_numpy_inputs_go_to_the_card(entry):
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without CUDA")
+    call = _entry_points(*_numpy_scene())[entry]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()
+
+
+@pytest.mark.parametrize("entry", range(9))
+def test_numpy_inputs_run_on_the_cpu_when_asked(entry):
+    out = _entry_points(*_numpy_scene(), device="cpu")[entry]()
+    assert out.device.type == "cpu" and bool(torch.isfinite(out).all())
+
+
+def test_tensors_decide_the_device():
+    from dirt_tpu_torch.devices import input_device
+    t = torch.zeros(2)
+    assert input_device([np.zeros(2), t]) == torch.device("cpu")
+    assert input_device([t], "cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        input_device([t, torch.zeros(2, device="meta")])
+    with pytest.raises(ValueError):
+        input_device([t], "cuda")

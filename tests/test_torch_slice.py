@@ -31,11 +31,13 @@ def scene(batch=2, resolution=64, segments=8, seed=0):
     vertices, faces = meshes.make_cylinder(0.5, 1.0, 0.1, 0.2, segments)
     homogeneous = np.concatenate(
         [vertices, np.ones((vertices.shape[0], 1), np.float32)], axis=1)
-    view = matrices.compose(matrices.translation([0., 0., -3.0]),
-                            matrices.rodrigues([-0.4, 0., 0.]))
-    projection = matrices.perspective_projection(0.1, 20., 0.25, 1.)
+    view = matrices.compose(
+        matrices.translation([0., 0., -3.0], device="cpu"),
+        matrices.rodrigues([-0.4, 0., 0.], device="cpu"))
+    projection = matrices.perspective_projection(0.1, 20., 0.25, 1.,
+                                                 device="cpu")
     rotations = matrices.rodrigues(
-        rng.uniform(-1, 1, size=(batch, 3)).astype(np.float32))
+        rng.uniform(-1, 1, size=(batch, 3)).astype(np.float32), device="cpu")
     clip = (torch.einsum("vi,bij->bvj", torch.as_tensor(homogeneous),
                          rotations) @ view @ projection).numpy()
     colors = rng.uniform(size=(batch, vertices.shape[0], 3)).astype(
@@ -106,12 +108,14 @@ def test_blocks_and_reference_steps_agree(bench_scene):
 def test_single_image_rasterise_matches_batch(bench_scene):
     background, clip, colors, faces, _ = bench_scene
     one = dirt_tpu_torch.rasterise(background[0], clip[0], colors[0],
-                                   faces[0], height=64, width=64, channels=3)
-    batch = dirt_tpu_torch.rasterise_batch(background, clip, colors, faces)
+                                   faces[0], height=64, width=64, channels=3,
+                                   device="cpu")
+    batch = dirt_tpu_torch.rasterise_batch(background, clip, colors, faces,
+                                           device="cpu")
     assert torch.equal(one, batch[0])
     with pytest.raises(ValueError):
         dirt_tpu_torch.rasterise(background[0], clip[0], colors[0], faces[0],
-                                 height=63)
+                                 height=63, device="cpu")
 
 
 def test_with_aux_is_outside_autograd(bench_scene):
