@@ -12,13 +12,15 @@ failure:
 
   1. device: torch and CUDA versions, the card's name and power limit;
      no CUDA device is a failure (nothing runs on the CPU);
-  2. build: the six CUDA kernels, compiled from dirt_tpu_torch/csrc/;
+  2. build: the eight CUDA kernels, compiled from dirt_tpu_torch/csrc/;
   3. kernels vs their plain PyTorch versions on the card, at the paths'
      shapes and on a 100x100 image, a camera-crossing scene and a
      1 x 256^2 x 8192-face cylinder: hit plane (K4), both sweeps' states
-     (K1, K7) and the plane stack (K2) bitwise, the pixels after finalize
-     bitwise, both reductions' rows (K3, K9) within max |d| / max(max |a|,
-     1) <= 1e-5 (the summation order differs);
+     (K1, K7), the plane stack (K2, also with the opt-in diagonal
+     dilation) and the fused sweep-and-shade outputs (K8) bitwise, the
+     pixels after finalize bitwise, the three reductions' rows (K3, K9,
+     K10) within max |d| / max(max |a|, 1) <= 1e-5 (the summation order
+     differs);
   4. paths, each with every launch counter reset just before and read just
      after, failing if a kernel of the path was not launched:
      a. blocks (the default): rasterise_batch forward + backward; image 0
@@ -33,14 +35,23 @@ failure:
         ambient + Lambert shader that closes over a light-direction leaf;
         the fused deferred backward against the two-call form, a finite,
         non-zero light gradient, finite vertex and attribute gradients;
+     d. pallas (backend="pallas"): the direct step; pixels and every aux
+        field == the blocks backend's, image 0 against the oracle,
+        gradients against the plain scatter gradient, no dropped hits;
+     e. mxu (the blocks forward with DIRT_TPU_TORCH_GRAD_BACKEND=mxu, set
+        and restored around each use): gradients against the plain
+        scatter gradient, rasterise_grad_debug's debug image == the plain
+        gradient's, and the deferred step (mxu's two-call fallback) against
+        the fused blocks deferred step, all within 3e-6;
      Every kernel call a path makes (the deferred path's two-call form
      included) is also recorded and held against its plain version on the
      same inputs, bitwise or within 1e-5 as above;
   5. timing (CUDA events, median of 25): each path's step, with its device
      time per step, busy share and largest device items from
      torch.profiler; each kernel against its plain version, its bound
-     and, for the reductions, their segment-sum form (per-pixel rows plus
-     torch.index_add);
+     and, for the reductions, their library form (K3, K9: the segment sum,
+     per-pixel rows plus torch.index_add; K10: the masks built from the
+     same ids and one float32 batched matmul, TF32 off);
   6. the kernels' JSON line, the card's name and power limit, and last the
      result line {"ok": true, "device": {...}}.
 """
@@ -48,6 +59,7 @@ failure:
 import contextlib
 import importlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -57,13 +69,15 @@ import numpy as np
 import torch
 
 GRAD_TOL = 3e-6      # normalised, as dirt_tpu's tests/test_grad_kernels.py
-ROW_TOL = 1e-5       # K3/K9 rows: max |kernel - plain| / max(max |plain|, 1)
+# K3/K9/K10 rows: max |kernel - plain| / max(max |plain|, 1)
+ROW_TOL = 1e-5
 STEPS = 25
 PROFILE_STEPS = 10
-# The H100 SXM's published peaks:
-# device memory 3.35 TB/s, float32 outside the tensor cores 67 TFLOP/s.
+# The H100 SXM's published peaks: device memory 3.35 TB/s, float32
+# outside the tensor cores 67 TFLOP/s, bf16 dense tensor cores 989 TFLOP/s.
 PEAK_BYTES_PER_MS = 3.35e9
 PEAK_OPS_PER_MS = 67e9
+PEAK_BF16_OPS_PER_MS = 989e9
 # Operations counted per unit of work, every arithmetic, compare, select
 # and logic operation of the kernels' expression trees:
 OPS_FACE_TEST = 48    # one (pixel, face) test of sweep_math.cuh
@@ -71,9 +85,12 @@ OPS_HIT = 72          # one (tile, face) bbox + half-plane cull of K4
 OPS_PIXEL_SCAN = 2    # one (face slot, pixel) id compare pair of K3/K9
 OPS_POSITION_HIT = 31  # the position sums of one matching pixel
 OPS_PREPASS_BASE = 100  # per pixel of K2, plus 22 per shaded channel
+OPS_SHADE_BASE = 14   # per pixel of K8's shading, plus 6 per channel
 PATH_KERNELS = {
     "blocks": ("hit_plane", "raster_sweep", "grad_prepass", "grad_reduce"),
     "dense": ("dense_sweep", "grad_prepass", "dense_grad_reduce"),
+    "pallas": ("pallas_raster", "hit_plane", "grad_prepass", "grad_reduce"),
+    "mxu": ("hit_plane", "raster_sweep", "grad_prepass", "mxu_grad"),
 }
 
 
@@ -216,14 +233,28 @@ def segment_sum(planes, clip, faces, channels):
     return torch.index_add(base, 0, keys, rows)
 
 
+def masked_matmul(face_ids, ids, values, chunk):
+    """The library form of K10's sums: for every (image, band, chunk) item,
+    the {0, 1} masks of the chunk's face ids against the band's post- and
+    pre-dilation ids ([2 * chunk, PIX], built from the same ids), times
+    the band's float32 value planes (values [B, bands, P, PIX]), as one
+    batched float32 matmul (TF32 off).  Dead chunks are computed too
+    (their masks are all zero unless a listed face misses the band)."""
+    batch, bands, _, pix = ids.shape
+    fid = face_ids.reshape(batch, bands, -1, chunk, 1)       # [B,T,NC,K,1]
+    post, pre = ids[:, :, None, 0:1], ids[:, :, None, 1:2]   # [B,T,1,1,PIX]
+    masks = torch.cat([post == fid, pre == fid], dim=3).to(torch.float32)
+    return torch.matmul(masks, values[:, :, None].transpose(-1, -2))
+
+
 def kernel_inputs(scene):
     """Runs the paths' stages on `scene`; returns, per kernel, a pair
     (kernel call, plain call) of zero-argument functions on the same
     inputs, the bytes and operations of its bound, and the call of the
     PyTorch library function that computes the same sums, if any."""
     from dirt_tpu_torch.ops import (forward_blocks as fb, forward_dense,
-                                    grad_blocks as gb, grad_dense,
-                                    prepass_fused)
+                                    forward_pallas, grad_blocks as gb,
+                                    grad_dense, grad_mxu, prepass_fused)
     background, clip, colors, faces, weights = scene
     batch, height, width, channels = background.shape
     th, tw, chunk = fb.TILE_H, fb.TILE_W, fb.CHUNK
@@ -248,6 +279,10 @@ def kernel_inputs(scene):
                   dtiles_x, dtiles_y * dtiles_x, dth, dtw, dchunk)
     dense_state_bytes = (batch * dtiles_y * dtiles_x * (channels + 9)
                          * dth * dtw * 4)
+    pallas_args = (dtable, dface_ids, dcounts, background, dtiles_x,
+                   dtiles_y * dtiles_x, dth, dtw, dchunk)
+    # K8 writes pixels, face index, vertex ids, barycentrics and clip w.
+    pallas_out_bytes = batch * height * width * (channels + 8) * 4
 
     pixels, aux = fb.rasterise_batch(background, clip, colors, faces)
     gh, gw, gchunk = gb.TILE_H, gb.TILE_W, gb.CHUNK
@@ -269,6 +304,18 @@ def kernel_inputs(scene):
     dgrad_args = (dgtable, dgface_ids, dgcounts, dplanes, channels, "all",
                   dgchunk)
     live_slots = int((_cdiv(dgcounts, dgchunk) * dgchunk).sum())
+
+    mids, mvalues, _ = grad_mxu.band_planes(pixels, weights, aux)
+    num_bands, mchunk = _cdiv(height, grad_mxu.BAND_H), grad_mxu.CHUNK
+    mface_ids, mcounts, _ = grad_mxu._pack_grad_bands(
+        clip, faces, height, width,
+        max(1, _cdiv(forward_pallas.tile_face_cap(faces.shape[1]), mchunk)),
+        num_bands)
+    mxu_args = (mface_ids, mcounts, mids, grad_mxu.split_bf16(mvalues),
+                mchunk)
+    ncols, mpix = mvalues.shape[-2], mvalues.shape[-1]
+    live_items = int(_cdiv(mcounts, mchunk).sum())
+    mxu_rows_bytes = mface_ids.numel() * 2 * ncols * 4
     # Pixels each reduction matches: one face per covered pixel, before
     # (colour) and after (position) the dilation.
     n_pos = int((planes[:, 7] >= 0).sum())
@@ -309,6 +356,16 @@ def kernel_inputs(scene):
                               + dgface_ids.numel() * d_out * 4,
                               live_slots * dgh * dgw * OPS_PIXEL_SCAN
                               + matches),
+        "pallas_raster": (_nbytes(dtable, dcounts, background) + listed * 4
+                          + pallas_out_bytes,
+                          listed * dth * dtw * OPS_FACE_TEST
+                          + batch * height * width
+                          * (OPS_SHADE_BASE + 6 * channels)),
+        # The products of the live items (a multiply-add is 2 flops), on
+        # the bf16 tensor cores.
+        "mxu_grad": (_nbytes(*mxu_args[:4]) + mxu_rows_bytes,
+                     2 * live_items * 2 * mchunk * mpix * ncols * 3,
+                     PEAK_BF16_OPS_PER_MS),
     }
     calls = {
         "hit_plane": (lambda: fb.hit_plane(*hit_args),
@@ -325,14 +382,23 @@ def kernel_inputs(scene):
         "dense_grad_reduce": (
             lambda: grad_dense.dense_grad_reduce(*dgrad_args),
             lambda: grad_dense.dense_grad_reduce_plain(*dgrad_args)),
+        "pallas_raster": (
+            lambda: forward_pallas.pallas_raster(*pallas_args),
+            lambda: forward_pallas.pallas_raster_plain(*pallas_args)),
+        "mxu_grad": (lambda: grad_mxu.mxu_grad(*mxu_args),
+                     lambda: grad_mxu.mxu_grad_plain(*mxu_args)),
     }
-    libraries = {"grad_reduce": library, "dense_grad_reduce": library}
+    libraries = {"grad_reduce": library, "dense_grad_reduce": library,
+                 "mxu_grad": lambda: masked_matmul(mface_ids, mids, mvalues,
+                                                   mchunk)}
     finalize = lambda state, tile_h, tile_w: forward_dense.finalize(
         state.reshape(batch, -1, channels + 9, tile_h * tile_w), background,
         height, width, _cdiv(height, tile_h), _cdiv(width, tile_w),
         tile_h=tile_h, tile_w=tile_w)[0]
+    prepass = lambda: (prepass_fused.plane_stack(*prepass_args),
+                       prepass_fused.plane_stack_plain(*prepass_args))
     return calls, dict(work=work, libraries=libraries, channels=channels,
-                       finalize=finalize, sweep_tiles={
+                       finalize=finalize, prepass=prepass, sweep_tiles={
                            "raster_sweep": (th, tw),
                            "dense_sweep": (dth, dtw)})
 
@@ -351,6 +417,7 @@ def compare_kernels(tag, scene):
     errors["hit_plane"] = _max_abs(keep_k, keep_p)
 
     channels = info["channels"]
+    finalized = {}
     for name in ("raster_sweep", "dense_sweep"):
         state_k, state_p = (f() for f in calls[name])
         torch.cuda.synchronize()
@@ -361,10 +428,24 @@ def compare_kernels(tag, scene):
             if not torch.equal(state_k[:, rows], state_p[:, rows]):
                 fail(f"{tag}: {name} {what} differs from its plain version")
         tile = info["sweep_tiles"][name]
-        if not torch.equal(info["finalize"](state_k, *tile),
-                           info["finalize"](state_p, *tile)):
+        finalized[name] = info["finalize"](state_k, *tile)
+        if not torch.equal(finalized[name], info["finalize"](state_p, *tile)):
             fail(f"{tag}: {name} pixels differ after finalize")
         errors[name] = _max_abs(state_k, state_p)
+
+    outs_k, outs_p = (f() for f in calls["pallas_raster"])
+    torch.cuda.synchronize()
+    for what, k, p in zip(("pixels", "face index", "vertex ids",
+                           "barycentrics", "clip w"), outs_k, outs_p,
+                          strict=True):
+        if not torch.equal(k, p):
+            fail(f"{tag}: pallas_raster {what} differ from its plain version "
+                 f"(max {_max_abs(k, p)})")
+    if not torch.equal(outs_k[0], finalized["dense_sweep"]):
+        fail(f"{tag}: pallas_raster pixels differ from dense_sweep's after "
+             f"finalize")
+    errors["pallas_raster"] = max(_max_abs(k, p)
+                                  for k, p in zip(outs_k, outs_p))
 
     (planes_k, dil_k), (planes_p, dil_p) = (f() for f in calls["grad_prepass"])
     torch.cuda.synchronize()
@@ -374,9 +455,17 @@ def compare_kernels(tag, scene):
     if not torch.equal(dil_k, dil_p):
         fail(f"{tag}: grad_prepass dilation mask differs")
     errors["grad_prepass"] = _max_abs(planes_k, planes_p)
+    dilated = {"axial": int(dil_k.sum())}
+    with diagonal_dilation():
+        (planes_k, dil_k), (planes_p, dil_p) = info["prepass"]()
+        torch.cuda.synchronize()
+    if not (torch.equal(planes_k, planes_p) and torch.equal(dil_k, dil_p)):
+        fail(f"{tag}: grad_prepass with the diagonal attempts differs from "
+             f"its plain version (max {_max_abs(planes_k, planes_p)})")
+    dilated["diagonal"] = int(dil_k.sum())
 
     rel = {}
-    for name in ("grad_reduce", "dense_grad_reduce"):
+    for name in ("grad_reduce", "dense_grad_reduce", "mxu_grad"):
         rows_k, rows_p = (f() for f in calls[name])
         torch.cuda.synchronize()
         rel[name] = (_max_abs(rows_k, rows_p)
@@ -385,10 +474,42 @@ def compare_kernels(tag, scene):
             fail(f"{tag}: {name} rows differ by {rel[name]} > {ROW_TOL}")
         errors[name] = _max_abs(rows_k, rows_p)
     phase("kernels", f"{tag}: K4 hit_plane ==, K1 raster_sweep == and K7 "
-          f"dense_sweep == (state, pixels), K2 grad_prepass ==, K3 "
-          f"grad_reduce rel {rel['grad_reduce']:.2e}, K9 dense_grad_reduce "
-          f"rel {rel['dense_grad_reduce']:.2e} OK")
+          f"dense_sweep == (state, pixels), K8 pallas_raster == (pixels, "
+          f"aux; pixels == K7's), K2 grad_prepass == (also with the "
+          f"diagonal attempts; dilated pixels {dilated}), K3 grad_reduce rel "
+          f"{rel['grad_reduce']:.2e}, K9 dense_grad_reduce rel "
+          f"{rel['dense_grad_reduce']:.2e}, K10 mxu_grad rel "
+          f"{rel['mxu_grad']:.2e} OK")
     return errors, calls, info
+
+
+@contextlib.contextmanager
+def diagonal_dilation():
+    """Within the block, the gradient pre-pass (K2 and its plain version)
+    also tries the four diagonal neighbours (backward.DIAGONAL, set by
+    DIRT_TPU_TORCH_DIAGONAL_DILATION at import)."""
+    from dirt_tpu_torch.ops import backward
+    saved = backward.DIAGONAL
+    backward.DIAGONAL = True
+    try:
+        yield
+    finally:
+        backward.DIAGONAL = saved
+
+
+@contextlib.contextmanager
+def grad_backend(name):
+    """Within the block, DIRT_TPU_TORCH_GRAD_BACKEND is `name` (the
+    gradient every autograd backward runs); restored after."""
+    saved = os.environ.get("DIRT_TPU_TORCH_GRAD_BACKEND")
+    os.environ["DIRT_TPU_TORCH_GRAD_BACKEND"] = name
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["DIRT_TPU_TORCH_GRAD_BACKEND"]
+        else:
+            os.environ["DIRT_TPU_TORCH_GRAD_BACKEND"] = saved
 
 
 # Each kernel's wrapper and plain version, as (module under
@@ -402,8 +523,12 @@ WRAPPERS = {
     "grad_reduce": ("grad_blocks", "grad_reduce", "grad_reduce_plain"),
     "dense_grad_reduce": ("grad_dense", "dense_grad_reduce",
                           "dense_grad_reduce_plain"),
+    "pallas_raster": ("forward_pallas", "pallas_raster",
+                      "pallas_raster_plain"),
+    "mxu_grad": ("grad_mxu", "mxu_grad", "mxu_grad_plain"),
 }
-BITWISE = ("hit_plane", "raster_sweep", "dense_sweep", "grad_prepass")
+BITWISE = ("hit_plane", "raster_sweep", "dense_sweep", "grad_prepass",
+           "pallas_raster")
 
 
 def _ops_module(name):
@@ -440,7 +565,8 @@ def recording():
 
 def check_recorded(tag, path, calls):
     """Holds each recorded kernel call against its plain version on the
-    same arguments: K4, K1, K7 and K2 bitwise, K3 and K9 within ROW_TOL;
+    same arguments: K4, K1, K7, K2 and K8 bitwise, K3, K9 and K10 within
+    ROW_TOL;
     fails if a kernel of `path` has no recorded call.  Returns {kernel:
     [shape of each call's first result]}."""
     checked = {}
@@ -523,7 +649,7 @@ def _check_grads(tag, pairs):
 
 
 def check_main_path(scene, backend="blocks"):
-    """Drives the direct path on `backend` and checks it (phase 4a/4b);
+    """Drives the direct path on `backend` and checks it (phase 4a/4b/4d);
     returns the launches of its kernels."""
     import dirt_tpu_torch
     from dirt_tpu_torch.ops import backward, dispatch
@@ -535,7 +661,7 @@ def check_main_path(scene, backend="blocks"):
             backend, lambda: step(scene, backend))
     phase(backend, f"launches in one step: {launches}")
     shapes = check_recorded(backend, backend, calls)
-    phase(backend, f"each kernel call of the step == (K3/K9 within "
+    phase(backend, f"each kernel call of the step == (K3/K9/K10 within "
           f"{ROW_TOL}) its plain version on the same inputs: {shapes}")
 
     px_aux, aux = dirt_tpu_torch.rasterise_batch_with_aux(
@@ -558,10 +684,19 @@ def check_main_path(scene, backend="blocks"):
              f"up to {np.abs(got_px - want_px).max()}")
 
     other = "reference" if backend == "blocks" else "blocks"
-    _, other_aux = dispatch.forward_batch(background, clip, colors, faces,
-                                          other)
+    other_px, other_aux = dispatch.forward_batch(background, clip, colors,
+                                                 faces, other)
     if not torch.equal(other_aux.face_index, aux.face_index):
         fail(f"{backend}: winner map differs from the {other} backend's")
+    if backend == "pallas":
+        # The same expressions as the blocks backend's finalize.
+        for name, got, want in [("pixels", pixels, other_px)] + [
+                (field, getattr(aux, field), getattr(other_aux, field))
+                for field in aux._fields]:
+            if not torch.equal(got, want):
+                fail(f"pallas: {name} differ from the blocks backend's (max "
+                     f"{_max_abs(got, want)})")
+        other = "blocks (pixels and every aux field ==)"
 
     want_bg, want_v, want_c = backward.rasterise_grad_grouped(
         clip, faces, pixels, weights, aux, implementation="xla")
@@ -609,7 +744,7 @@ def check_deferred_path(dscene, backend):
             implementation=implementation)
     shapes = check_recorded(tag, backend, calls)
     phase(tag, f"each kernel call of the fused step and the two-call form "
-          f"== (K3/K9 within {ROW_TOL}) its plain version on the same "
+          f"== (K3/K9/K10 within {ROW_TOL}) its plain version on the same "
           f"inputs: {shapes}")
     _check_grads(tag, (("grad_background", g_bg, want_bg),
                        ("grad_vertices", g_clip, want_v),
@@ -620,6 +755,65 @@ def check_deferred_path(dscene, backend):
              f"non-zero")
     phase(tag, f"fused vs two-call within 3e-6; light gradient "
           f"{[round(float(g), 4) for g in g_light]}; finite")
+    return launches
+
+
+def mxu_step(scene):
+    """step() on the blocks forward with the mxu gradient."""
+    with grad_backend("mxu"):
+        return step(scene, "blocks")
+
+
+def check_mxu_path(scene, dscene):
+    """Drives the blocks forward with DIRT_TPU_TORCH_GRAD_BACKEND=mxu and
+    checks it (phase 4e); returns the launches of its kernels."""
+    import dirt_tpu_torch
+    from dirt_tpu_torch.ops import backward, dispatch
+    background, clip, colors, faces, weights = scene
+
+    with recording() as calls:
+        (pixels, (g_bg, g_clip, g_colors)), launches = counted(
+            "mxu", lambda: mxu_step(scene))
+    phase("mxu", f"launches in one step: {launches}")
+    shapes = check_recorded("mxu", "mxu", calls)
+    phase("mxu", f"each kernel call of the step == (K10 within {ROW_TOL}) "
+          f"its plain version on the same inputs: {shapes}")
+    _, aux = dispatch.forward_batch(background, clip, colors, faces,
+                                    "blocks")
+    want_bg, want_v, want_c = backward.rasterise_grad_grouped(
+        clip, faces, pixels, weights, aux, implementation="xla")
+    if not torch.equal(g_bg, want_bg):
+        fail("mxu: grad_background differs from the plain gradient")
+    _check_grads("mxu", (("grad_vertices", g_clip, want_v),
+                         ("grad_vertex_colors", g_colors, want_c)))
+
+    args = (background[0], clip[0], colors[0], faces[0], weights[0])
+    got, got_debug = dirt_tpu_torch.rasterise_grad_debug(
+        *args, grad_implementation="mxu")
+    want, want_debug = dirt_tpu_torch.rasterise_grad_debug(
+        *args, grad_implementation="xla")
+    if not torch.equal(got_debug, want_debug):
+        fail("mxu: rasterise_grad_debug's debug image differs from the "
+             "plain gradient's")
+    _check_grads("mxu debug", (
+        ("grad_vertices", got.grad_vertices, want.grad_vertices),
+        ("grad_vertex_colors", got.grad_vertex_colors,
+         want.grad_vertex_colors)))
+
+    # The deferred step: mxu has no fused form and takes two calls (the
+    # colour call reduces the 10-channel G-buffer: 48 columns).
+    with grad_backend("mxu"), recording() as calls:
+        _, mxu_grads = deferred_step(dscene, "blocks")
+    shapes = check_recorded("mxu deferred", "mxu", calls)
+    with grad_backend("auto"):
+        _, fused_grads = deferred_step(dscene, "blocks")
+    _check_grads("mxu deferred", zip(
+        ("grad_background", "grad_vertices", "grad_attributes",
+         "light gradient"), mxu_grads, fused_grads))
+    phase("mxu", f"gradients vs plain within 3e-6; debug image == the "
+          f"plain gradient's; deferred two-call fallback (kernel calls "
+          f"{shapes}, each == its plain version) vs the fused blocks "
+          f"deferred step within 3e-6")
     return launches
 
 
@@ -669,10 +863,12 @@ def device_profile(fn, reps):
             {k: round(v, 4) for k, v in top.items()})
 
 
-def bound(nbytes, ops):
-    """The least time (ms) the card could take, and what bounds it."""
+def bound(nbytes, ops, peak_ops_per_ms=PEAK_OPS_PER_MS):
+    """The least time (ms) the card could take, and what bounds it: the
+    bytes over the memory rate, or the operations over `peak_ops_per_ms`
+    (float32 outside the tensor cores unless the work runs on them)."""
     by_bytes = nbytes / PEAK_BYTES_PER_MS
-    by_ops = ops / PEAK_OPS_PER_MS
+    by_ops = ops / peak_ops_per_ms
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
 
@@ -694,6 +890,7 @@ def main():
           f"{torch.cuda.get_device_name(0)}; nvidia-smi: {card_line}")
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 matmuls in f32
 
     # 2. Build
     from dirt_tpu_torch.ops import _cuda
@@ -709,12 +906,19 @@ def main():
     compare_kernels("camera-crossing", crossing_scene(device))
     compare_kernels("1x256^2x8192f", bench_scene(1, 256, 1024, device))
 
-    # 4. Paths
-    launches = check_main_path(scene, "blocks")
-    launches.update(check_main_path(scene, "dense"))
+    # 4. Paths; each kernel's launches are those of the first path that
+    # runs it (K1-K4 blocks, K7/K9 dense, K8 pallas, K10 mxu).
+    launches = {}
     dscene = deferred_scene(scene)
+    path_launches = [check_main_path(scene, backend)
+                     for backend in ("blocks", "dense")]
     deferred_launches = {backend: check_deferred_path(dscene, backend)
                          for backend in ("blocks", "dense")}
+    path_launches += [check_main_path(scene, "pallas"),
+                      check_mxu_path(scene, dscene)]
+    for counts in path_launches:
+        for name, n in counts.items():
+            launches.setdefault(name, n)
 
     # 5. Timing
     paths = {
@@ -722,6 +926,8 @@ def main():
         "dense direct": lambda: step(scene, "dense"),
         "deferred blocks": lambda: deferred_step(dscene, "blocks"),
         "deferred dense": lambda: deferred_step(dscene, "dense"),
+        "pallas direct": lambda: step(scene, "pallas"),
+        "mxu direct": lambda: mxu_step(scene),
     }
     steps = {name: time_ms(run, STEPS) for name, run in paths.items()}
     for name, run in paths.items():

@@ -59,20 +59,8 @@ __global__ void dense_sweep_kernel(
   const float yg = 1.0f - ((float)row + 0.5f) * sy;
 
   dirt::Winner w;
-  const int* ids = face_ids + (long long)bt * slots;
-  const int n = counts[bt];
-  for (int i0 = 0; i0 < n; i0 += chunk) {
-    const int k_end = min(chunk, n - i0);
-    __syncthreads();
-    for (int j = threadIdx.x; j < k_end * width_d; j += blockDim.x) {
-      const int k = j / width_d;
-      rows[j] = table[(long long)ids[i0 + k] * width_d + (j - k * width_d)];
-    }
-    __syncthreads();
-    for (int k = 0; k < k_end; ++k) {
-      dirt::test_face(rows + k * width_d, xg, yg, ids[i0 + k], w);
-    }
-  }
+  dirt::sweep_list(table, face_ids + (long long)bt * slots, counts[bt], chunk,
+                   width_d, rows, xg, yg, w);
 
   if (p >= pix) return;
   dirt::write_state(table, width_d, channels, w,

@@ -11,8 +11,11 @@
 // products channel by channel (left to right, as the plain version sums);
 // picks the dominant axis with the parity-dithered sign; tries the primary
 // then the opposite 4-neighbour for an occluder (over a triangle, a
-// different triangle, nearer; interior pixels only; both attempts compare
-// against the pixel's own state); and writes ax, ay, Px, Py, the dilated
+// different triangle, nearer; interior pixels only; every attempt compares
+// against the pixel's own state), then, when `diagonal` is set (dirt_tpu's
+// opt-in DIAGONAL dilation, backward.py:146-147,189-198), the four
+// diagonal neighbours in its parity-dithered order; and writes ax, ay, Px,
+// Py, the dilated
 // barycentrics and face id, then (parts "all") the pre-dilation
 // barycentrics, face id and cotangent channels, into plane k of its tile at
 // planes[(b*T + t)*np_dma + k][p].  Pixels past the image edge and planes
@@ -44,7 +47,7 @@ __global__ void grad_prepass_kernel(
     bool* __restrict__ dilated,            // [B, H, W]
     long long total, int height, int width, int channels, int cot_channels,
     int tile_h, int tile_w, int tiles_x, int num_tiles, int np_dma,
-    int all_parts) {
+    int all_parts, int diagonal) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
   // idx enumerates (b, t, p): consecutive threads fill one tile row.
@@ -103,11 +106,13 @@ __global__ void grad_prepass_kernel(
   }
 
   // --- Occluder dilation (rasterise_grad_egl.cu:153-194).
-  // Offsets 0:(+1,0) 1:(-1,0) 2:(0,+1) 3:(0,-1): (r, c+1) (r, c-1)
-  // (r-1, c) (r+1, c).
+  // Offsets (ox, oy) read row r - oy, column c + ox: 0:(+1,0) 1:(-1,0)
+  // 2:(0,+1) 3:(0,-1), and the diagonal 4:(+1,+1) 5:(-1,-1) 6:(+1,-1)
+  // 7:(-1,+1).
   const bool horizontal = l1_x > l1_y;
   const bool flip = ((r + c) % 2) == 1;
   const int primary = horizontal ? (flip ? 1 : 0) : (flip ? 3 : 2);
+  const int d_first = flip ? (horizontal ? 6 : 7) : (horizontal ? 4 : 5);
   const bool interior = r > 0 && r < height - 1 && c > 0 && c < width - 1;
   const int idx0 = indices[here * 3 + 0];
   const int idx1 = indices[here * 3 + 1];
@@ -116,10 +121,17 @@ __global__ void grad_prepass_kernel(
   const int face_here = face[here];
 
   long long adopt = -1;   // flat pixel whose state is adopted
-  for (int attempt = 0; attempt < 2 && adopt < 0; ++attempt) {
-    const int o = attempt == 0 ? primary : (primary ^ 1);
-    const int nr = o == 2 ? r - 1 : (o == 3 ? r + 1 : r);
-    const int nc = o == 0 ? c + 1 : (o == 1 ? c - 1 : c);
+  const int attempts = diagonal ? 6 : 2;
+  for (int attempt = 0; attempt < attempts && adopt < 0; ++attempt) {
+    const int o = attempt == 0   ? primary
+                  : attempt == 1 ? (primary ^ 1)
+                                 : (d_first ^ (attempt - 2));
+    // ox is +1 for 0, 4, 6 and -1 for 1, 5, 7; oy is +1 for 2, 4, 7 and
+    // -1 for 3, 5, 6.
+    const int ox = (o == 2 || o == 3) ? 0 : ((o & 1) ? -1 : 1);
+    const int oy = o < 2 ? 0 : ((o == 2 || o == 4 || o == 7) ? 1 : -1);
+    const int nr = r - oy;
+    const int nc = c + ox;
     if (!interior) break;   // border pixels never dilate
     const long long q = img + (long long)nr * width + nc;
     const int n0 = indices[q * 3 + 0];
@@ -175,7 +187,7 @@ extern "C" int dirt_grad_prepass(
     const float* bary, const int* indices, const float* clip_w,
     const int* face, float* planes, bool* dilated, int batch, int height,
     int width, int channels, int cot_channels, int tile_h, int tile_w,
-    int tiles_x, int num_tiles, int np_dma, int all_parts,
+    int tiles_x, int num_tiles, int np_dma, int all_parts, int diagonal,
     cudaStream_t stream) {
   const long long total = (long long)batch * num_tiles * tile_h * tile_w;
   if (total == 0) return (int)cudaGetLastError();
@@ -184,6 +196,6 @@ extern "C" int dirt_grad_prepass(
   grad_prepass_kernel<<<(unsigned int)blocks, threads, 0, stream>>>(
       pixels, grad, cot, bary, indices, clip_w, face, planes, dilated, total,
       height, width, channels, cot_channels, tile_h, tile_w, tiles_x,
-      num_tiles, np_dma, all_parts);
+      num_tiles, np_dma, all_parts, diagonal);
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,9 @@
 // The per-face arithmetic of the forward sweeps, shared by K1 raster_sweep
-// (raster_sweep.cu) and K7 dense_sweep (dense_sweep.cu) so the two cannot
-// drift: one thread tests one face-table row against its pixel centre and
-// keeps the lexicographic (depth, original face index) winner, then writes
-// the packed per-pixel state of forward_dense.
+// (raster_sweep.cu), K7 dense_sweep (dense_sweep.cu) and K8 pallas_raster
+// (pallas_raster.cu) so they cannot drift: one thread tests one face-table
+// row against its pixel centre and keeps the lexicographic (depth, original
+// face index) winner; K1 and K7 then write the packed per-pixel state of
+// forward_dense, K8 shades the winner itself.
 //
 // The arithmetic is forward_dense._chunk_candidates' expression tree for
 // one row: edge functions, the COVER_FAST fill rule with the
@@ -56,6 +57,29 @@ __device__ __forceinline__ void test_face(const float* f, float xg, float yg,
     w.e2 = e2;
     w.sw = s_w;
     w.row = row;
+  }
+}
+
+// Walks one tile's face list: the n table rows ids[0 .. n), staged by
+// index into shared memory `rows` (chunk x width_d floats) `chunk` rows at
+// a time, each tested in list order at (xg, yg).  Every thread of the
+// block must call it (it synchronises); used by K7 dense_sweep and K8
+// pallas_raster, which walk the same per-tile lists.
+__device__ __forceinline__ void sweep_list(const float* table, const int* ids,
+                                           int n, int chunk, int width_d,
+                                           float* rows, float xg, float yg,
+                                           Winner& w) {
+  for (int i0 = 0; i0 < n; i0 += chunk) {
+    const int k_end = min(chunk, n - i0);
+    __syncthreads();
+    for (int j = threadIdx.x; j < k_end * width_d; j += blockDim.x) {
+      const int k = j / width_d;
+      rows[j] = table[(long long)ids[i0 + k] * width_d + (j - k * width_d)];
+    }
+    __syncthreads();
+    for (int k = 0; k < k_end; ++k) {
+      test_face(rows + k * width_d, xg, yg, ids[i0 + k], w);
+    }
   }
 }
 

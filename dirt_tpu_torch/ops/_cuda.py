@@ -30,7 +30,8 @@ _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("raster_sweep.cu", "hit_plane.cu", "grad_prepass.cu",
-           "grad_reduce.cu", "dense_sweep.cu", "dense_grad.cu")
+           "grad_reduce.cu", "dense_sweep.cu", "dense_grad.cu",
+           "pallas_raster.cu", "mxu_grad.cu")
 HEADERS = ("sweep_math.cuh", "grad_math.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC")

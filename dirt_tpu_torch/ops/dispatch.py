@@ -8,6 +8,9 @@ Backends:
                  PyTorch versions.
   * "dense":     exact per-tile face lists (ops/forward_dense.py).  On
                  CUDA tensors its sweep runs as the CUDA kernel K7.
+  * "pallas":    the same lists, swept and shaded in one kernel
+                 (ops/forward_pallas.py, K8 on CUDA) that writes the
+                 pixels and aux directly; equal to "dense" bit for bit.
   * "reference": brute-force sweep (ops/reference.py), the oracle.
   * None/"auto": chosen by the tensors' device -- "blocks" for CUDA,
                  "reference" for the CPU, the same defaults dirt_tpu uses
@@ -21,9 +24,13 @@ Backends:
 
 The gradient follows the forward's choice: "blocks" pairs with the
 block-binned gradient (kernels K2 and K3), "dense" with the tile-major
-dense gradient (kernels K2 and K9), "reference" with the plain scatter
-gradient ("xla", the name dirt_tpu gives it).  dirt_tpu's "pallas"
-backend is not ported yet (ROADMAP queue 2, K8).
+dense gradient (kernels K2 and K9), "pallas" with the block-binned one
+too (dirt_tpu's gradient name "pallas" resolves to its blocks kernel),
+"reference" with the plain scatter gradient ("xla", the name dirt_tpu
+gives it).  DIRT_TPU_TORCH_GRAD_BACKEND, when set and not "auto",
+overrides the pairing (grad_for_backend), as dirt_tpu's
+DIRT_TPU_GRAD_BACKEND overrides its automatic choice: it is how a
+training step reaches the "mxu" gradient.
 """
 
 import os
@@ -32,8 +39,9 @@ import torch
 
 from . import reference
 
-BACKENDS = ("blocks", "dense", "reference")
-GRAD_FOR_BACKEND = {"blocks": "blocks", "dense": "dense", "reference": "xla"}
+BACKENDS = ("blocks", "dense", "pallas", "reference")
+GRAD_FOR_BACKEND = {"blocks": "blocks", "dense": "dense", "pallas": "blocks",
+                    "reference": "xla"}
 
 
 def default_backend(device, num_faces=None):
@@ -46,6 +54,14 @@ def default_backend(device, num_faces=None):
     if num_faces is not None and num_faces <= threshold:
         return "dense"
     return "blocks"
+
+
+def grad_for_backend(backend):
+    """The gradient implementation a backend's autograd backward runs:
+    DIRT_TPU_TORCH_GRAD_BACKEND when set and not "auto", else the
+    backend's pairing (GRAD_FOR_BACKEND)."""
+    env = os.environ.get("DIRT_TPU_TORCH_GRAD_BACKEND", "auto")
+    return GRAD_FOR_BACKEND[backend] if env == "auto" else env
 
 
 def resolve_backend(backend, device, num_faces=None):
@@ -91,6 +107,10 @@ def forward_batch(background, vertices, vertex_colors, faces, backend=None):
     if chosen == "dense":
         from . import forward_dense
         return forward_dense.rasterise_batch(
+            background, vertices, vertex_colors, faces)
+    if chosen == "pallas":
+        from . import forward_pallas
+        return forward_pallas.rasterise_batch(
             background, vertices, vertex_colors, faces)
     from . import forward_blocks
     return forward_blocks.rasterise_batch(

@@ -1,10 +1,14 @@
-"""The forward face table and the exact per-tile packing (from
-dirt_tpu/ops/forward_pallas.py).
+"""The forward face table, the exact per-tile packing and the "pallas"
+backend (PyTorch port of dirt_tpu/ops/forward_pallas.py).
 
 The block-binned schedule (ops/forward_blocks.py) reads the table; the
-"dense" backend (ops/forward_dense.py) reads it through the per-tile
-face lists of _pack_faces.  The "pallas" backend's per-face kernel is not
-ported yet (ROADMAP queue 2, K8).
+"dense" backend (ops/forward_dense.py) and the "pallas" backend read it
+through the per-tile face lists of _pack_faces.  The "pallas" backend is
+dirt_tpu's original fused kernel: visibility over the tile's list, then
+shading, in one kernel (pallas_raster, kernel K8 on CUDA) that writes the
+pixels and the aux fields directly -- no per-pixel state, no finalize.
+It uses the dense backend's GPU tile (16x16) and packing, so the two
+differ only in the kernel, and their outputs are equal bit for bit.
 
 Face-table layout, float32 per face:
   [0:9]   edge coefficients e (row-major 3x3)
@@ -20,7 +24,7 @@ import os
 
 import torch
 
-from . import geometry
+from . import _cuda, geometry
 
 _BASE = 27           # packed floats per face before corner attributes
 _BIG = 1 << 30
@@ -163,3 +167,199 @@ def tile_face_cap(num_faces):
     if cap <= 0:
         return num_faces
     return min(num_faces, cap)
+
+
+# --------------------------------------------------------------------------
+# K8: the "pallas" backend's two-phase kernel
+# --------------------------------------------------------------------------
+
+PALLAS_RASTER = _cuda.Kernel(
+    "pallas_raster", "dirt_pallas_raster",
+    [_cuda.ptr] * 9 + [_cuda.i32] * 11 + [_cuda.f32] * 2 + [_cuda.ptr],
+    replaces="dirt_tpu/ops/forward_pallas.py:215",
+    source="pallas_raster.cu")
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _visibility_plain(face_table, face_ids, counts, height, width, tiles_x,
+                      num_tiles, tile_h, tile_w, chunk):
+    """Phase 1 of dirt_tpu's _raster_kernel for R tile runs: each pixel's
+    winner among its tile's counts[r] listed rows, by the literal coverage
+    tree (both sign branches, the valid flag) and the lexicographic
+    (depth, original index) z-test from glClearDepth's (1.0, -1).
+
+    Returns (winner table row [R, PIX] int64, -1 for none; its depth
+    [R, PIX])."""
+    from . import forward_dense
+    runs = counts.shape[0]
+    device = counts.device
+    pix = tile_h * tile_w
+    best_row = torch.full((runs, pix), -1, dtype=torch.long, device=device)
+    best_depth = torch.ones(runs, pix, device=device)
+    step = max(1, forward_dense._PLAIN_ELEMENTS // (chunk * pix))
+    for r0 in range(0, runs, step):
+        r1 = min(runs, r0 + step)
+        tile = torch.arange(r0, r1, device=device) % num_tiles
+        xg, yg = forward_dense.pixel_ndc((tile // tiles_x) * tile_h,
+                                         (tile % tiles_x) * tile_w,
+                                         height, width, tile_h, tile_w)
+        n = counts[r0:r1]
+        depth_b = torch.ones(r1 - r0, 1, pix, device=device)
+        orig_b = torch.full((r1 - r0, 1, pix), -1.0, device=device)
+        row_b = torch.full((r1 - r0, 1, pix), -1, dtype=torch.long,
+                           device=device)
+        for m in range(_cdiv(int(n.max()), chunk)):
+            ids = face_ids[r0:r1, m * chunk:(m + 1) * chunk].long()  # [R, K]
+            slot = m * chunk + torch.arange(ids.shape[1], device=device)
+            live = (slot < n[:, None])[..., None]                    # [R,K,1]
+            rows = face_table[ids]                                   # [R,K,D]
+            col = lambda i: rows[:, :, i:i + 1]
+            E0 = (col(0) * xg + col(1) * yg) + col(2)
+            E1 = (col(3) * xg + col(4) * yg) + col(5)
+            E2 = (col(6) * xg + col(7) * yg) + col(8)
+            s_z = (E0 * col(9) + E1 * col(10)) + E2 * col(11)
+            s_w = (E0 * col(12) + E1 * col(13)) + E2 * col(14)
+            a0, a1, a2 = (col(15 + k) != 0.0 for k in range(3))
+            in_p = (((E0 > 0) | ((E0 == 0) & a0))
+                    & ((E1 > 0) | ((E1 == 0) & a1))
+                    & ((E2 > 0) | ((E2 == 0) & a2)))
+            in_n = (((E0 < 0) | ((E0 == 0) & ~a0))
+                    & ((E1 < 0) | ((E1 == 0) & ~a1))
+                    & ((E2 < 0) | ((E2 == 0) & ~a2)))
+            cov_p = in_p & (s_w > 0) & (s_z >= -s_w) & (s_z <= s_w)
+            cov_n = in_n & (s_w < 0) & (s_z <= -s_w) & (s_z >= s_w)
+            covered = (cov_p | cov_n) & (col(18) != 0.0) & live
+            depth = torch.where(covered, s_z / s_w, torch.inf)
+            # The chunk's lexicographic minimum, then GL_LESS + draw-order
+            # ties against the running winner (associative: the same winner
+            # as dirt_tpu's face-by-face loop).
+            orig = col(19)
+            chunk_depth = depth.amin(dim=1, keepdim=True)
+            at_best = covered & (depth == chunk_depth)
+            chunk_orig = torch.where(at_best, orig, float(_BIG)).amin(
+                dim=1, keepdim=True)
+            chunk_row = torch.where(at_best & (orig == chunk_orig),
+                                    ids[..., None], -1).amax(dim=1,
+                                                             keepdim=True)
+            better = (chunk_depth < torch.inf) & (
+                (chunk_depth < depth_b)
+                | ((chunk_depth == depth_b) & (chunk_orig < orig_b)))
+            depth_b = torch.where(better, chunk_depth, depth_b)
+            orig_b = torch.where(better, chunk_orig, orig_b)
+            row_b = torch.where(better, chunk_row, row_b)
+        best_row[r0:r1] = row_b[:, 0]
+        best_depth[r0:r1] = depth_b[:, 0]
+    return best_row, best_depth
+
+
+def pallas_raster_plain(face_table, face_ids, counts, background, tiles_x,
+                        num_tiles, tile_h, tile_w, chunk):
+    """dirt_tpu's _raster_kernel for a batch: phase 1 (_visibility_plain),
+    then phase 2 shades each pixel's winner from its table row with
+    forward_dense.finalize's expressions (the interpolation numerators,
+    one division by (E0 + E1) + E2, the background and aux clears).
+
+    Returns (pixels [B, H, W, C], face_index [B, H, W] int32, indices
+    [B, H, W, 3] int32, barycentric [B, H, W, 3], clip_w [B, H, W])."""
+    from . import forward_dense
+    batch, height, width, channels = background.shape
+    tiles_y = num_tiles // tiles_x
+    best_row, best_depth = _visibility_plain(
+        face_table, face_ids, counts, height, width, tiles_x, num_tiles,
+        tile_h, tile_w, chunk)
+    tile = torch.arange(counts.shape[0], device=counts.device) % num_tiles
+    xg, yg = forward_dense.pixel_ndc((tile // tiles_x) * tile_h,
+                                     (tile % tiles_x) * tile_w, height, width,
+                                     tile_h, tile_w)
+    xg, yg = xg[:, 0], yg[:, 0]                                  # [R, PIX]
+    f = face_table[best_row.clamp(min=0)]                        # [R, PIX, D]
+    col = lambda i: f[..., i]
+    E0 = (col(0) * xg + col(1) * yg) + col(2)
+    E1 = (col(3) * xg + col(4) * yg) + col(5)
+    E2 = (col(6) * xg + col(7) * yg) + col(8)
+    s_w = (E0 * col(12) + E1 * col(13)) + E2 * col(14)
+    nums = [(E0 * col(_BASE + ch) + E1 * col(_BASE + channels + ch))
+            + E2 * col(_BASE + 2 * channels + ch) for ch in range(channels)]
+    covered = best_row >= 0
+    orig = torch.where(covered, col(19), -1.0)
+    # forward_dense's packed state [R, C+9, PIX], for finalize.
+    state = torch.stack(nums + [E0, E1, E2, s_w, col(24), col(25), col(26),
+                                best_depth, orig], dim=1)
+    pixels, aux = forward_dense.finalize(
+        state.reshape(batch, num_tiles, channels + 9, tile_h * tile_w),
+        background, height, width, tiles_y, tiles_x, tile_h=tile_h,
+        tile_w=tile_w)
+    return (pixels, aux.face_index, aux.indices, aux.barycentric,
+            aux.clip_w)
+
+
+def pallas_raster(face_table, face_ids, counts, background, tiles_x,
+                  num_tiles, tile_h, tile_w, chunk):
+    """K8 wrapper: pallas_raster_plain's outputs, by the CUDA kernel for
+    CUDA tensors and by the plain version for CPU tensors.
+
+    face_table [B*F', D] f32 (the images' tables stacked); face_ids
+    [B*T, slots] int32 rows of it, batch-folded; counts [B*T] int32;
+    background [B, H, W, C] f32."""
+    if not _cuda.on_cuda(face_table, face_ids, counts, background):
+        return pallas_raster_plain(face_table, face_ids, counts, background,
+                                   tiles_x, num_tiles, tile_h, tile_w, chunk)
+    batch, height, width, channels = background.shape
+    runs, slots = face_ids.shape
+    if tile_h * tile_w > 1024:
+        raise ValueError(f"pallas_raster runs one thread per pixel: a "
+                         f"{tile_h}x{tile_w} tile exceeds 1024 threads")
+    if runs != batch * num_tiles:
+        raise ValueError(f"{runs} face lists for {batch} images of "
+                         f"{num_tiles} tiles")
+    device = background.device
+    hw = (batch, height, width)
+    pixels = torch.empty(hw + (channels,), device=device)
+    face_index = torch.empty(hw, dtype=torch.int32, device=device)
+    indices = torch.empty(hw + (3,), dtype=torch.int32, device=device)
+    barycentric = torch.empty(hw + (3,), device=device)
+    clip_w = torch.empty(hw, device=device)
+    PALLAS_RASTER(
+        _cuda.check("face_table", face_table, torch.float32),
+        _cuda.check("face_ids", face_ids, torch.int32),
+        _cuda.check("counts", counts, torch.int32, (runs,)),
+        _cuda.check("background", background, torch.float32),
+        _cuda.check("pixels", pixels, torch.float32),
+        _cuda.check("face_index", face_index, torch.int32),
+        _cuda.check("indices", indices, torch.int32),
+        _cuda.check("barycentric", barycentric, torch.float32),
+        _cuda.check("clip_w", clip_w, torch.float32),
+        runs, slots, num_tiles, tiles_x, tile_h, tile_w, chunk,
+        face_table.shape[1], channels, height, width, 2.0 / width,
+        2.0 / height, _cuda.stream())
+    return pixels, face_index, indices, barycentric, clip_w
+
+
+def rasterise_batch(background, vertices, vertex_colors, faces, tile_h=None,
+                    tile_w=None, chunk=None):
+    """Batched forward rasterisation through the "pallas" backend.
+
+    Returns (pixels [B, H, W, C], reference.RasterAux) with `dropped`, the
+    per-image hits beyond the per-tile cap (tile_face_cap).  The packing is
+    the dense backend's (forward_dense.pack, its tile and chunk by
+    default), so the outputs equal its outputs bit for bit."""
+    from . import forward_dense, reference
+    batch, height, width, _ = background.shape
+    if faces.shape[1] == 0:
+        return reference.rasterise_batch(background, vertices, vertex_colors,
+                                         faces)
+    if tile_h is None or tile_w is None:
+        tile_h, tile_w = forward_dense.tile_shape(height, width)
+    chunk = chunk or forward_dense.CHUNK
+    tiles_x = _cdiv(width, tile_w)
+    num_tiles = _cdiv(height, tile_h) * tiles_x
+    face_table, face_ids, counts, dropped = forward_dense.pack(
+        vertices, vertex_colors, faces, height, width, tile_h, tile_w, chunk)
+    pixels, face_index, indices, barycentric, clip_w = pallas_raster(
+        face_table, face_ids, counts, background, tiles_x, num_tiles, tile_h,
+        tile_w, chunk)
+    return pixels, reference.RasterAux(face_index, indices, barycentric,
+                                       clip_w, dropped)

@@ -2,7 +2,8 @@
 dirt_tpu/ops/prepass_fused.py).
 
 plane_stack computes, per pixel, what backward.grad_prepass computes --
-Scharr filtering, the two-attempt occluder dilation and the viewport
+Scharr filtering, the occluder dilation (the two axial attempts, and the
+four diagonal ones when backward.DIAGONAL is set) and the viewport
 factors -- and writes the plane stack of grad_dense.plane_layout directly
 in the tile-major [B*T, np_dma, tile_h*tile_w] layout the block-binned
 gradient reduction reads.  On CUDA tensors this is kernel K2; on CPU
@@ -18,11 +19,11 @@ them harmless).
 
 import torch
 
-from . import _cuda, grad_dense
+from . import _cuda, backward, grad_dense
 
 GRAD_PREPASS = _cuda.Kernel(
     "grad_prepass", "dirt_grad_prepass",
-    [_cuda.ptr] * 9 + [_cuda.i32] * 11 + [_cuda.ptr],
+    [_cuda.ptr] * 9 + [_cuda.i32] * 12 + [_cuda.ptr],
     replaces="dirt_tpu/ops/prepass_fused.py:70", source="grad_prepass.cu")
 
 
@@ -91,7 +92,8 @@ def plane_stack(pixels, grad_pixels, aux, tile_h, tile_w, np_dma,
         _cuda.check("planes", planes, torch.float32),
         _cuda.check("dilated", dilated, torch.bool),
         batch, height, width, channels, cot_channels, tile_h, tile_w,
-        tiles_x, num_tiles, np_dma, int(parts == "all"), _cuda.stream())
+        tiles_x, num_tiles, np_dma, int(parts == "all"),
+        int(backward.DIAGONAL), _cuda.stream())
     return planes, dilated
 
 

@@ -26,8 +26,11 @@ and Python values go to ``device``, and without one to the card
 (devices.py).  The backend is chosen by the device (ops/dispatch.py):
 CUDA tensors run the block-binned schedule through the CUDA kernels, CPU
 tensors the brute-force reference and the plain scatter gradient;
-``backend="dense"`` picks the tile-list backend.  The gradient follows
-the forward's backend.
+``backend="dense"`` picks the tile-list backend and ``backend="pallas"``
+the fused sweep-and-shade kernel over the same lists.  The gradient
+follows the forward's backend, unless DIRT_TPU_TORCH_GRAD_BACKEND names
+another ("xla", "blocks", "dense" or "mxu", the tensor-core masked sums
+of ops/grad_mxu.py).
 """
 
 import torch
@@ -61,7 +64,7 @@ class _RasteriseBatch(torch.autograd.Function):
             background, vertices, vertex_colors, faces, backend)
         ctx.save_for_backward(vertices, faces, pixels,
                               *_aux_tensors(aux))
-        ctx.grad_implementation = _dispatch.GRAD_FOR_BACKEND[backend]
+        ctx.grad_implementation = _dispatch.grad_for_backend(backend)
         return pixels
 
     @staticmethod
@@ -85,8 +88,8 @@ def rasterise_batch(background, vertices, vertex_colors, faces, height=None,
         faces: int32 [batch, face count, 3] vertex-index triples.
         height, width, channels: optional ints, validated against the
             background's shape.
-        backend: optional "blocks" | "dense" | "reference" override (see
-            ops/dispatch.py); None chooses by device.
+        backend: optional "blocks" | "dense" | "pallas" | "reference"
+            override (see ops/dispatch.py); None chooses by device.
         device: where inputs that are not tensors go (default: the CUDA
             card); tensors keep their own device.
 
@@ -120,9 +123,9 @@ def rasterise_batch_with_aux(background, vertices, vertex_colors, faces,
     RasterAux carries the backward residuals (face index map, vertex-index
     triples, barycentrics, clip w) and ``dropped``, the per-image count of
     face visits the schedule could not hold -- the blocks backend's slot
-    budget, the dense backend's per-tile face cap (0 means the render is
-    exact).  A diagnostic surface: the pixels are not attached to autograd
-    (use ``rasterise_batch`` to train).
+    budget, the dense and pallas backends' per-tile face cap (0 means the
+    render is exact).  A diagnostic surface: the pixels are not attached
+    to autograd (use ``rasterise_batch`` to train).
     """
     with torch.no_grad():
         return _dispatch.forward_batch(
@@ -140,8 +143,9 @@ def rasterise_grad_debug(background, vertices, vertex_colors, faces,
     channel 0 marks pixels dilated to an occluder (1e-2) and channels 1/2
     echo the cotangent's channels 1/2 (backward.debug_image).
     `grad_implementation` names the gradient path: "xla", "blocks",
-    "dense", "pallas" (the automatic kernel choice, "blocks") or None
-    (the device's default); unknown names raise ValueError.
+    "dense", "mxu", "pallas" (the automatic kernel choice, "blocks") or
+    None (DIRT_TPU_TORCH_GRAD_BACKEND, else the device's default); unknown
+    names raise ValueError.
     """
     device = input_device(
         (background, vertices, vertex_colors, faces, grad_pixels), device)
@@ -193,7 +197,7 @@ class _RasteriseGBuffer(torch.autograd.Function):
             background, vertices, attributes, faces, backend)
         ctx.save_for_backward(vertices, faces, gbuffer,
                               *_aux_tensors(aux))
-        ctx.grad_implementation = _dispatch.GRAD_FOR_BACKEND[backend]
+        ctx.grad_implementation = _dispatch.grad_for_backend(backend)
         ctx.shaded = shaded
         return gbuffer
 

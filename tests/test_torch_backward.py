@@ -291,9 +291,9 @@ def test_grad_reduce_honours_truncated_runs(cases):
 
 
 def test_unknown_names_raise(cases):
-    # "dense" is ported now; dirt_tpu's "mxu" is not, and "nope" is no name.
+    # Every dirt_tpu implementation is ported; these are no names.
     c = cases["soup"]
-    for name in ("mxu", "nope"):
+    for name in ("mosaic", "nope"):
         with pytest.raises(ValueError, match=name):
             backward.rasterise_grad_batch(c.v, c.f, c.tpixels, c.gp, c.taux,
                                           implementation=name)

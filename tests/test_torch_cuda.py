@@ -6,11 +6,12 @@ elsewhere.  On the card, run them without the JAX test configuration:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 The checks are chip_smoke.py's, at small shapes: the hit plane, both
-sweeps' states and the plane stack bitwise, both reductions' rows within
-1e-5 (normalised); the blocks and dense paths against the native oracle,
-each other and the plain gradient, and the deferred path on both
-backends against the two-call form, with every kernel of each path
-launched.
+sweeps' states, the fused sweep-and-shade outputs and the plane stack
+(also with the diagonal dilation) bitwise, the three reductions' rows
+within 1e-5 (normalised); the blocks, dense and pallas paths against the
+native oracle, each other and the plain gradient, the mxu gradient
+against the plain one, and the deferred path on both backends against
+the two-call form, with every kernel of each path launched.
 """
 
 import pathlib
@@ -43,9 +44,10 @@ def test_kernels_match_plain(device, scene):
     errors, _, _ = chip_smoke.compare_kernels(scene, make())
     assert errors["hit_plane"] == errors["raster_sweep"] == 0.0
     assert errors["dense_sweep"] == errors["grad_prepass"] == 0.0
+    assert errors["pallas_raster"] == 0.0
 
 
-@pytest.mark.parametrize("backend", ["blocks", "dense"])
+@pytest.mark.parametrize("backend", ["blocks", "dense", "pallas"])
 def test_main_path(device, backend):
     launches = chip_smoke.check_main_path(
         chip_smoke.bench_scene(2, 64, 16, device), backend)
@@ -58,6 +60,14 @@ def test_deferred_path(device, backend):
     scene = chip_smoke.bench_scene(2, 64, 16, device)
     launches = chip_smoke.check_deferred_path(
         chip_smoke.deferred_scene(scene), backend)
+    assert all(n > 0 for n in launches.values())
+
+
+def test_mxu_path(device):
+    scene = chip_smoke.bench_scene(2, 64, 16, device)
+    launches = chip_smoke.check_mxu_path(scene,
+                                         chip_smoke.deferred_scene(scene))
+    assert sorted(launches) == sorted(chip_smoke.PATH_KERNELS["mxu"])
     assert all(n > 0 for n in launches.values())
 
 
@@ -169,3 +179,54 @@ def test_numpy_inputs_run_on_the_card(device):
     assert matrices.perspective_projection(0.1, 20., 0.25, 1.).is_cuda
     assert dirt_tpu_torch.rasterise(bg[0], v[0], c[0], f[0],
                                     device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("channels", [1, 10])
+def test_pallas_raster_any_channel_count(device, channels):
+    from dirt_tpu_torch.ops import dispatch, forward_dense, forward_pallas
+    bg, v, c, f, _ = _soup(device, channels, size=37)
+    h, w = bg.shape[1:3]
+    table, face_ids, counts, _ = forward_dense.pack(v, c, f, h, w, 16, 16,
+                                                    64)
+    args = (table, face_ids, counts, bg, -(-w // 16),
+            -(-h // 16) * -(-w // 16), 16, 16, 64)
+    for got, want in zip(forward_pallas.pallas_raster(*args),
+                         forward_pallas.pallas_raster_plain(*args)):
+        assert torch.equal(got, want)
+    px_p, aux_p = dispatch.forward_batch(bg, v, c, f, "pallas")
+    px_d, aux_d = dispatch.forward_batch(bg, v, c, f, "dense")
+    assert torch.equal(px_p, px_d)
+    for field in aux_p._fields:
+        assert torch.equal(getattr(aux_p, field), getattr(aux_d, field))
+
+
+@pytest.mark.parametrize("channels,chunk", [(1, 16), (3, 128), (16, 64)])
+def test_mxu_grad_columns_and_chunks(device, monkeypatch, channels, chunk):
+    # 18 + 3C columns: 21, 27 and 66 (two passes of at most four
+    # fragments); 37-pixel rows leave a ragged last slice; a 16-face chunk
+    # has one warp.
+    from dirt_tpu_torch.ops import dispatch, grad_mxu
+    monkeypatch.setattr(grad_mxu, "CHUNK", chunk)
+    bg, v, c, f, gp = _soup(device, channels, size=37)
+    px, aux = dispatch.forward_batch(bg, v, c, f, "blocks")
+    h, w = bg.shape[1:3]
+    ids, values, _ = grad_mxu.band_planes(px, gp, aux)
+    face_ids, counts, _ = grad_mxu._pack_grad_bands(
+        v, f, h, w, -(-f.shape[1] // chunk), -(-h // 16))
+    args = (face_ids, counts, ids, grad_mxu.split_bf16(values), chunk)
+    rows = grad_mxu.mxu_grad(*args)
+    want = grad_mxu.mxu_grad_plain(*args)
+    scale = max(float(want.abs().max()), 1.0)
+    assert float((rows - want).abs().max()) / scale <= 1e-5
+    assert float(want.abs().max()) > 0
+
+
+def test_diagonal_dilation_kernel(device):
+    from dirt_tpu_torch.ops import dispatch, prepass_fused
+    bg, v, c, f, gp = _soup(device, 3)
+    px, aux = dispatch.forward_batch(bg, v, c, f, "blocks")
+    with chip_smoke.diagonal_dilation():
+        planes, dilated = prepass_fused.plane_stack(px, gp, aux, 16, 16, 16)
+        want, want_dilated = prepass_fused.plane_stack_plain(px, gp, aux, 16,
+                                                             16, 16)
+    assert torch.equal(planes, want) and torch.equal(dilated, want_dilated)

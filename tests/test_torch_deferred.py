@@ -296,7 +296,7 @@ def test_fused_deferred_wide_and_split_shaded_groups(shaded):
 def test_unported_and_unknown_implementations_raise():
     _, (v, f, a, bg) = _fused_scene(9, 3)
     gbuffer, aux = dispatch.forward_batch(bg, v, a, f, "reference")
-    for name in ("mxu", "nope"):
+    for name in ("mosaic", "nope"):
         with pytest.raises(ValueError, match=name):
             backward.rasterise_grad_deferred(v, f, gbuffer, gbuffer, gbuffer,
                                              gbuffer, aux,

@@ -243,7 +243,7 @@ def test_blocks_threshold_selects_dense(monkeypatch):
     assert dispatch.default_backend("cpu", 512) == "reference"
     assert dispatch.GRAD_FOR_BACKEND["dense"] == "dense"
     with pytest.raises(ValueError):
-        dispatch.resolve_backend("pallas", "cpu")
+        dispatch.resolve_backend("mosaic", "cpu")
 
 
 # -- the dense gradient -----------------------------------------------------

@@ -330,7 +330,7 @@ def test_forward_batch_validates_inputs():
     with pytest.raises(ValueError):
         dispatch.forward_batch(bg, v, c[..., :2], f)
     with pytest.raises(ValueError):
-        dispatch.forward_batch(bg, v, c, f, backend="pallas")
+        dispatch.forward_batch(bg, v, c, f, backend="mosaic")
 
 
 def test_default_backend_by_device(monkeypatch):

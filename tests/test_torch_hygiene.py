@@ -39,6 +39,7 @@ def _env():
 def test_import_leaves_jax_out():
     code = ("import sys, dirt_tpu_torch, dirt_tpu_torch.ops.grad_blocks, "
             "dirt_tpu_torch.ops.forward_dense, dirt_tpu_torch.ops.grad_dense, "
+            "dirt_tpu_torch.ops.forward_pallas, dirt_tpu_torch.ops.grad_mxu, "
             "dirt_tpu_torch.ops.dispatch, dirt_tpu_torch.devices, "
             "dirt_tpu_torch.utils.convert, dirt_tpu_torch.utils.oracle; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
@@ -113,6 +114,32 @@ def test_chip_smoke_segment_sum_is_the_reduction():
     assert err <= 1e-5, err
 
 
+def test_chip_smoke_masked_matmul_is_the_mxu_sums():
+    """chip_smoke times the masks plus one float32 matmul as the library
+    form of K10: it must give K10's rows (its plain version's) wherever a
+    chunk is live."""
+    from dirt_tpu_torch.ops import forward_blocks, grad_mxu
+    smoke = _chip_smoke()
+    background, clip, colors, faces, weights = smoke.bench_scene(
+        2, 64, 16, "cpu")
+    height, width = background.shape[1:3]
+    pixels, aux = forward_blocks.rasterise_batch(background, clip, colors,
+                                                 faces)
+    ids, values, _ = grad_mxu.band_planes(pixels, weights, aux)
+    chunk = 64
+    face_ids, counts, _ = grad_mxu._pack_grad_bands(clip, faces, height,
+                                                    width, 2, height // 16)
+    got = smoke.masked_matmul(face_ids, ids, values, chunk)
+    want = grad_mxu.mxu_grad_plain(face_ids, counts, ids,
+                                   grad_mxu.split_bf16(values), chunk)
+    got = got.reshape(want.shape)
+    live = ((torch.arange(got.shape[1]) % 4)[None] * chunk
+            < counts.repeat_interleave(4, dim=1))
+    assert bool(live.any()) and float(want.abs().max()) > 0
+    err = float((got[live] - want[live]).abs().max())
+    assert err / max(float(want.abs().max()), 1.) <= 1e-5, err
+
+
 def test_chip_smoke_fails_alone(tmp_path):
     shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
     env = dict(os.environ)
@@ -126,11 +153,16 @@ def test_chip_smoke_fails_alone(tmp_path):
 
 def test_kernels_name_what_they_replace():
     from dirt_tpu_torch.ops import (_cuda, forward_blocks, forward_dense,
-                                    grad_blocks, grad_dense, prepass_fused)
-    del forward_blocks, forward_dense, grad_blocks, grad_dense, prepass_fused
+                                    forward_pallas, grad_blocks, grad_dense,
+                                    grad_mxu, prepass_fused)
+    del forward_blocks, forward_dense, forward_pallas, grad_blocks
+    del grad_dense, grad_mxu, prepass_fused
     assert sorted(_cuda.KERNELS) == ["dense_grad_reduce", "dense_sweep",
                                      "grad_prepass", "grad_reduce",
-                                     "hit_plane", "raster_sweep"]
+                                     "hit_plane", "mxu_grad",
+                                     "pallas_raster", "raster_sweep"]
+    assert sorted(k.source for k in _cuda.KERNELS.values()) == sorted(
+        _cuda.SOURCES)
     for name, kernel in _cuda.KERNELS.items():
         assert kernel.source in _cuda.SOURCES
         header = (PKG / "csrc" / kernel.source).read_text()[:600]
