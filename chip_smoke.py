@@ -12,15 +12,20 @@ failure:
 
   1. device: torch and CUDA versions, the card's name and power limit;
      no CUDA device is a failure (nothing runs on the CPU);
-  2. build: the eight CUDA kernels, compiled from dirt_tpu_torch/csrc/;
+  2. build: the twelve CUDA kernels, compiled from dirt_tpu_torch/csrc/;
   3. kernels vs their plain PyTorch versions on the card, at the paths'
      shapes and on a 100x100 image, a camera-crossing scene and a
-     1 x 256^2 x 8192-face cylinder: hit plane (K4), both sweeps' states
-     (K1, K7), the plane stack (K2, also with the opt-in diagonal
+     1 x 256^2 x 8192-face cylinder: hit plane (K4), the sweeps' states
+     (K1, K7, the slot sweep K5b and, where the image's table fits a
+     block's shared memory, the resident sweep K5; K5b and K5 also ==
+     K1's state), the plane stack (K2, also with the opt-in diagonal
      dilation) and the fused sweep-and-shade outputs (K8) bitwise, the
-     pixels after finalize bitwise, the three reductions' rows (K3, K9,
-     K10) within max |d| / max(max |a|, 1) <= 1e-5 (the summation order
-     differs);
+     pixels after finalize bitwise, the four reductions' rows (K3, K6,
+     K9, K10) within max |d| / max(max |a|, 1) <= 1e-5 (the summation
+     order differs) and K6's rows == K3's; on the camera-crossing scene a
+     truncating slot budget (DIRT_TPU_TORCH_SLOTS_PER_IMAGE), whose
+     dropped count must be the one the fused runs imply and whose cut
+     tiles must be background (cut face blocks: zero rows);
   4. paths, each with every launch counter reset just before and read just
      after, failing if a kernel of the path was not launched:
      a. blocks (the default): rasterise_batch forward + backward; image 0
@@ -43,15 +48,28 @@ failure:
         scatter gradient, rasterise_grad_debug's debug image == the plain
         gradient's, and the deferred step (mxu's two-call fallback) against
         the fused blocks deferred step, all within 3e-6;
+     f. slots (forward_blocks.FUSED and grad_blocks.FUSED off, set and
+        restored around each use): the direct step, pixels and every aux
+        field == the blocks path's, gradients against the plain scatter
+        gradient; the deferred step against the fused blocks deferred
+        step within 3e-6;
+     g. resident (forward_blocks.RESIDENT_MB = 0, auto): the direct step,
+        pixels and every aux field == the blocks path's, gradients against
+        the plain one; on the 8192-face cylinder, whose table exceeds a
+        block's shared memory, the forward launches K1 and not K5;
+     h. repro: K11 scalar_accum at the repro's own sizes and on 256 tiles
+        x 8 chunks with random counts, within 1e-5 of its plain version
+        and within the repro's 1e-3 of its numpy reference;
      Every kernel call a path makes (the deferred path's two-call form
      included) is also recorded and held against its plain version on the
      same inputs, bitwise or within 1e-5 as above;
   5. timing (CUDA events, median of 25): each path's step, with its device
      time per step, busy share and largest device items from
      torch.profiler; each kernel against its plain version, its bound
-     and, for the reductions, their library form (K3, K9: the segment sum,
-     per-pixel rows plus torch.index_add; K10: the masks built from the
-     same ids and one float32 batched matmul, TF32 off);
+     and, for the reductions, their library form (K3, K6, K9: the segment
+     sum, per-pixel rows plus torch.index_add; K10: the masks built from
+     the same ids and one float32 batched matmul, TF32 off; K11: its masks
+     times its values, one float32 bmm);
   6. the kernels' JSON line, the card's name and power limit, and last the
      result line {"ok": true, "device": {...}}.
 """
@@ -86,11 +104,17 @@ OPS_PIXEL_SCAN = 2    # one (face slot, pixel) id compare pair of K3/K9
 OPS_POSITION_HIT = 31  # the position sums of one matching pixel
 OPS_PREPASS_BASE = 100  # per pixel of K2, plus 22 per shaded channel
 OPS_SHADE_BASE = 14   # per pixel of K8's shading, plus 6 per channel
+OPS_ACCUM_SCAN = 1    # one (row, pixel) id compare of K11
+OPS_ACCUM_MATCH = 6   # the four sums of one matching pixel of K11
 PATH_KERNELS = {
     "blocks": ("hit_plane", "raster_sweep", "grad_prepass", "grad_reduce"),
     "dense": ("dense_sweep", "grad_prepass", "dense_grad_reduce"),
     "pallas": ("pallas_raster", "hit_plane", "grad_prepass", "grad_reduce"),
     "mxu": ("hit_plane", "raster_sweep", "grad_prepass", "mxu_grad"),
+    "slots": ("hit_plane", "slot_sweep", "grad_prepass", "slot_grad_reduce"),
+    "resident": ("hit_plane", "resident_sweep", "grad_prepass",
+                 "grad_reduce"),
+    "repro": ("scalar_accum",),
 }
 
 
@@ -247,6 +271,38 @@ def masked_matmul(face_ids, ids, values, chunk):
     return torch.matmul(masks, values[:, :, None].transpose(-1, -2))
 
 
+def repro_reference(planes, ids, counts, chunk):
+    """repro/mosaic_scalar_smem_accum.py's numpy `reference`, row by row,
+    with the rows at or past a tile's count left zero (the kernel's loop
+    bound): [T, N / chunk, chunk, 4] from planes [T, 3, H, W], ids [T, 1,
+    N] and counts [T, 1, 1, 1]."""
+    tiles, num_ids = planes.shape[0], ids.shape[-1]
+    out = np.zeros((tiles, num_ids // chunk, chunk, 4), np.float32)
+    for t in range(tiles):
+        a, b, pid = planes[t]
+        for row in range(min(int(counts.reshape(-1)[t]), num_ids)):
+            mask = pid == ids[t, 0, row]
+            ma, mb = np.where(mask, a, 0), np.where(mask, b, 0)
+            out[t, row // chunk, row % chunk] = [
+                ma.sum(), mb.sum(), (ma * b).sum(), -(mb * a).sum()]
+    return out
+
+
+def accum_bmm(planes, ids, counts, chunk):
+    """The library form of K11's rows: the {0, 1} masks of each tile's
+    live ids against its id plane ([T, N, PIX]) times its value planes
+    (a, b, a * b, -(b * a): [T, PIX, 4]), as one float32 bmm (TF32 off)."""
+    tiles = planes.shape[0]
+    flat = planes.reshape(tiles, 3, -1)
+    a, b, pid = flat[:, 0], flat[:, 1], flat[:, 2]
+    ids = ids.reshape(tiles, -1)
+    live = (torch.arange(ids.shape[1], device=ids.device)[None]
+            < counts.reshape(tiles, 1))
+    masks = ((pid[:, None, :] == ids[..., None]) & live[..., None]).float()
+    values = torch.stack([a, b, a * b, -(b * a)], dim=-1)
+    return torch.bmm(masks, values).reshape(tiles, -1, chunk, 4)
+
+
 def kernel_inputs(scene):
     """Runs the paths' stages on `scene`; returns, per kernel, a pair
     (kernel call, plain call) of zero-argument functions on the same
@@ -269,6 +325,14 @@ def kernel_inputs(scene):
     sweep_args = (table, starts, counts, block_ids, channels, height, width,
                   tiles_x, tiles_y * tiles_x, th, tw)
     state_bytes = batch * tiles_y * tiles_x * (channels + 9) * pix * 4
+    stable, slot_tile, slot_block, slot_dma, _ = fb.pack_slots(
+        clip, colors, faces, height, width, th, tw, chunk)
+    slot_args = (stable, slot_tile, slot_block, slot_dma, batch, channels,
+                 height, width, tiles_x, tiles_y * tiles_x, th, tw)
+    # K5 runs where the auto budget (a block's shared memory) admits the
+    # image's table, by the path's own selection rule.
+    with resident_table():
+        resident_fits = fb.takes_resident(table, batch)
 
     dth, dtw = forward_dense.tile_shape(height, width)
     dchunk = forward_dense.CHUNK
@@ -294,6 +358,10 @@ def kernel_inputs(scene):
         clip, faces, height, width, gh, gw, gchunk)
     reduce_args = (gtable, planes, gstarts, gcounts, tile_ids, channels,
                    "all")
+    _, slot_run, slot_item, gslot_dma, _ = gb.pack_slots(
+        clip, faces, height, width, gh, gw, gchunk)
+    slot_reduce_args = (gtable, planes, slot_run, slot_item, gslot_dma,
+                        channels, "all")
     d_out = grad_dense.d_out_for("all", channels)
 
     dgh, dgw, dgchunk = grad_dense.TILE_H, grad_dense.TILE_W, grad_dense.CHUNK
@@ -338,6 +406,14 @@ def kernel_inputs(scene):
         "raster_sweep": (_nbytes(table, starts, counts) + visits * 4
                          + state_bytes,
                          visits * chunk * pix * OPS_FACE_TEST),
+        "resident_sweep": (_nbytes(table, starts, counts) + visits * 4
+                           + state_bytes,
+                           visits * chunk * pix * OPS_FACE_TEST),
+        # The slot arrays in place of the runs; the live slots' visits.
+        "slot_sweep": (_nbytes(stable, slot_tile, slot_block, slot_dma)
+                       + state_bytes,
+                       int((slot_block >= 0).sum()) * chunk * pix
+                       * OPS_FACE_TEST),
         "dense_sweep": (_nbytes(dtable, dcounts) + listed * 4
                         + dense_state_bytes,
                         listed * dth * dtw * OPS_FACE_TEST),
@@ -351,6 +427,11 @@ def kernel_inputs(scene):
                         + gtable.shape[0] * gchunk * d_out * 4,
                         int(gcounts.sum()) * gchunk * gh * gw
                         * OPS_PIXEL_SCAN + matches),
+        "slot_grad_reduce": (_nbytes(gtable, slot_run, slot_item,
+                                     gslot_dma) + plane_bytes
+                             + gtable.shape[0] * gchunk * d_out * 4,
+                             int((slot_item >= 0).sum()) * gchunk * gh * gw
+                             * OPS_PIXEL_SCAN + matches),
         "dense_grad_reduce": (_nbytes(dgtable, dgcounts) + plane_bytes
                               + live_slots * 4
                               + dgface_ids.numel() * d_out * 4,
@@ -372,6 +453,8 @@ def kernel_inputs(scene):
                       lambda: fb.hit_plane_plain(*hit_args)),
         "raster_sweep": (lambda: fb.raster_sweep(*sweep_args),
                          lambda: fb.raster_sweep_plain(*sweep_args)),
+        "slot_sweep": (lambda: fb.slot_sweep(*slot_args),
+                       lambda: fb.slot_sweep_plain(*slot_args)),
         "dense_sweep": (lambda: forward_dense.dense_sweep(*dense_args),
                         lambda: forward_dense.dense_sweep_plain(*dense_args)),
         "grad_prepass": (lambda: prepass_fused.plane_stack(*prepass_args),
@@ -379,6 +462,9 @@ def kernel_inputs(scene):
                              *prepass_args)),
         "grad_reduce": (lambda: gb.grad_reduce(*reduce_args),
                         lambda: gb.grad_reduce_plain(*reduce_args)),
+        "slot_grad_reduce": (
+            lambda: gb.slot_grad_reduce(*slot_reduce_args),
+            lambda: gb.slot_grad_reduce_plain(*slot_reduce_args)),
         "dense_grad_reduce": (
             lambda: grad_dense.dense_grad_reduce(*dgrad_args),
             lambda: grad_dense.dense_grad_reduce_plain(*dgrad_args)),
@@ -388,7 +474,12 @@ def kernel_inputs(scene):
         "mxu_grad": (lambda: grad_mxu.mxu_grad(*mxu_args),
                      lambda: grad_mxu.mxu_grad_plain(*mxu_args)),
     }
+    if resident_fits:
+        calls["resident_sweep"] = (
+            lambda: fb.resident_sweep(*sweep_args),
+            lambda: fb.resident_sweep_plain(*sweep_args))
     libraries = {"grad_reduce": library, "dense_grad_reduce": library,
+                 "slot_grad_reduce": library,
                  "mxu_grad": lambda: masked_matmul(mface_ids, mids, mvalues,
                                                    mchunk)}
     finalize = lambda state, tile_h, tile_w: forward_dense.finalize(
@@ -400,6 +491,8 @@ def kernel_inputs(scene):
     return calls, dict(work=work, libraries=libraries, channels=channels,
                        finalize=finalize, prepass=prepass, sweep_tiles={
                            "raster_sweep": (th, tw),
+                           "slot_sweep": (th, tw),
+                           "resident_sweep": (th, tw),
                            "dense_sweep": (dth, dtw)})
 
 
@@ -417,8 +510,11 @@ def compare_kernels(tag, scene):
     errors["hit_plane"] = _max_abs(keep_k, keep_p)
 
     channels = info["channels"]
-    finalized = {}
-    for name in ("raster_sweep", "dense_sweep"):
+    finalized, states = {}, {}
+    sweeps = [name for name in ("raster_sweep", "slot_sweep",
+                                "resident_sweep", "dense_sweep")
+              if name in calls]
+    for name in sweeps:
         state_k, state_p = (f() for f in calls[name])
         torch.cuda.synchronize()
         for what, rows in (("winner map", slice(channels + 8, channels + 9)),
@@ -432,6 +528,12 @@ def compare_kernels(tag, scene):
         if not torch.equal(finalized[name], info["finalize"](state_p, *tile)):
             fail(f"{tag}: {name} pixels differ after finalize")
         errors[name] = _max_abs(state_k, state_p)
+        states[name] = state_k
+    for name in sweeps[1:-1]:
+        # The other schedules visit the same blocks in the same order.
+        if not torch.equal(states[name], states["raster_sweep"]):
+            fail(f"{tag}: {name} state differs from raster_sweep's (max "
+                 f"{_max_abs(states[name], states['raster_sweep'])})")
 
     outs_k, outs_p = (f() for f in calls["pallas_raster"])
     torch.cuda.synchronize()
@@ -464,8 +566,9 @@ def compare_kernels(tag, scene):
              f"its plain version (max {_max_abs(planes_k, planes_p)})")
     dilated["diagonal"] = int(dil_k.sum())
 
-    rel = {}
-    for name in ("grad_reduce", "dense_grad_reduce", "mxu_grad"):
+    rel, rows = {}, {}
+    for name in ("grad_reduce", "slot_grad_reduce", "dense_grad_reduce",
+                 "mxu_grad"):
         rows_k, rows_p = (f() for f in calls[name])
         torch.cuda.synchronize()
         rel[name] = (_max_abs(rows_k, rows_p)
@@ -473,43 +576,152 @@ def compare_kernels(tag, scene):
         if not rel[name] <= ROW_TOL:
             fail(f"{tag}: {name} rows differ by {rel[name]} > {ROW_TOL}")
         errors[name] = _max_abs(rows_k, rows_p)
-    phase("kernels", f"{tag}: K4 hit_plane ==, K1 raster_sweep == and K7 "
+        rows[name] = rows_k
+    if not torch.equal(rows["slot_grad_reduce"], rows["grad_reduce"]):
+        fail(f"{tag}: slot_grad_reduce rows differ from grad_reduce's (max "
+             f"{_max_abs(rows['slot_grad_reduce'], rows['grad_reduce'])})")
+    resident = ("K5 resident_sweep == (state, pixels; state == K1's)"
+                if "resident_sweep" in calls else
+                "K5 not run (the image's table exceeds a block's shared "
+                "memory)")
+    phase("kernels", f"{tag}: K4 hit_plane ==, K1 raster_sweep ==, K5b "
+          f"slot_sweep == (state, pixels; state == K1's), {resident}, K7 "
           f"dense_sweep == (state, pixels), K8 pallas_raster == (pixels, "
           f"aux; pixels == K7's), K2 grad_prepass == (also with the "
           f"diagonal attempts; dilated pixels {dilated}), K3 grad_reduce rel "
-          f"{rel['grad_reduce']:.2e}, K9 dense_grad_reduce rel "
-          f"{rel['dense_grad_reduce']:.2e}, K10 mxu_grad rel "
-          f"{rel['mxu_grad']:.2e} OK")
+          f"{rel['grad_reduce']:.2e}, K6 slot_grad_reduce rel "
+          f"{rel['slot_grad_reduce']:.2e} (rows == K3's), K9 "
+          f"dense_grad_reduce rel {rel['dense_grad_reduce']:.2e}, K10 "
+          f"mxu_grad rel {rel['mxu_grad']:.2e} OK")
     return errors, calls, info
 
 
-@contextlib.contextmanager
-def diagonal_dilation():
-    """Within the block, the gradient pre-pass (K2 and its plain version)
-    also tries the four diagonal neighbours (backward.DIAGONAL, set by
-    DIRT_TPU_TORCH_DIAGONAL_DILATION at import)."""
-    from dirt_tpu_torch.ops import backward
-    saved = backward.DIAGONAL
-    backward.DIAGONAL = True
-    try:
-        yield
-    finally:
-        backward.DIAGONAL = saved
+def check_truncated(tag, scene):
+    """Truncating slot budgets on `scene`: half the slots the image with
+    fewer needs, forward and gradient.  K5b and K6 against their plain
+    versions; `dropped` == the slots the fused runs imply beyond the
+    budget (each tile's hits, at least one); every tile without a
+    surviving slot is background and every face block without one has
+    zero rows."""
+    from dirt_tpu_torch.ops import (forward_blocks as fb, forward_dense,
+                                    grad_blocks as gb, prepass_fused)
+    background, clip, colors, faces, weights = scene
+    batch, height, width, channels = background.shape
+    th, tw, chunk = fb.TILE_H, fb.TILE_W, fb.CHUNK
+    tiles_x, num_tiles = _cdiv(width, tw), _cdiv(height, th) * _cdiv(
+        width, tw)
+    _, _, counts, _, _ = fb.pack(clip, colors, faces, height, width, th, tw,
+                                 chunk)
+    need = counts.clamp(min=1).reshape(batch, -1).sum(-1)
+    budget = int(need.min()) // 2
+    with slot_budget(budget):
+        table, slot_tile, slot_block, slot_dma, dropped = fb.pack_slots(
+            clip, colors, faces, height, width, th, tw, chunk)
+    grad_schedule = (clip, faces, height, width, gb.TILE_H, gb.TILE_W,
+                     gb.CHUNK)
+    gcounts = gb.pack(*grad_schedule)[2]
+    with slot_budget(int(gcounts.clamp(min=1).reshape(batch, -1).sum(-1)
+                         .min()) // 2):
+        gtable, slot_run, slot_item, gslot_dma, _ = gb.pack_slots(
+            *grad_schedule)
+    if not torch.equal(dropped, (need - budget).clamp(min=0).to(
+            dropped.dtype)):
+        fail(f"{tag}: slot budget {budget}: dropped {dropped.tolist()}, the "
+             f"fused runs imply {(need - budget).tolist()}")
+    args = (table, slot_tile, slot_block, slot_dma, batch, channels, height,
+            width, tiles_x, num_tiles, th, tw)
+    state = fb.slot_sweep(*args)
+    if not torch.equal(state, fb.slot_sweep_plain(*args)):
+        fail(f"{tag}: truncated slot_sweep differs from its plain version")
+    swept = torch.zeros(batch * num_tiles, dtype=torch.bool,
+                        device=state.device)
+    swept[slot_tile.long()] = True
+    init = forward_dense.init_state(channels, th * tw, device=state.device)
+    cut = int((~swept).sum())
+    if cut == 0 or not torch.equal(state[~swept],
+                                   init.expand(cut, -1, -1)):
+        fail(f"{tag}: the {cut} tiles the slot budget cut are not "
+             f"background")
+
+    pixels, aux = fb.rasterise_batch(background, clip, colors, faces)
+    np_dma = _cdiv(gb.grad_dense.plane_layout("all", channels)[0], 8) * 8
+    planes, _ = prepass_fused.plane_stack(pixels, weights, aux, gb.TILE_H,
+                                          gb.TILE_W, np_dma)
+    gargs = (gtable, planes, slot_run, slot_item, gslot_dma, channels, "all")
+    rows, want = gb.slot_grad_reduce(*gargs), gb.slot_grad_reduce_plain(
+        *gargs)
+    rel = _max_abs(rows, want) / max(float(want.abs().max()), 1.0)
+    live = torch.zeros(gtable.shape[0], dtype=torch.bool, device=rows.device)
+    live[slot_run[slot_item >= 0].long()] = True
+    if not rel <= ROW_TOL or bool(rows[~live].any()) or bool(live.all()):
+        fail(f"{tag}: truncated slot_grad_reduce: rel {rel}, "
+             f"{int((~live).sum())} cut blocks, non-zero among them: "
+             f"{bool(rows[~live].any())}")
+    phase("kernels", f"{tag}: slot budget {budget}: dropped "
+          f"{dropped.tolist()} as the fused runs imply, K5b == plain, {cut} "
+          f"cut tiles background; K6 rel {rel:.2e}, "
+          f"{int((~live).sum())} cut face blocks zero OK")
 
 
 @contextlib.contextmanager
-def grad_backend(name):
-    """Within the block, DIRT_TPU_TORCH_GRAD_BACKEND is `name` (the
-    gradient every autograd backward runs); restored after."""
-    saved = os.environ.get("DIRT_TPU_TORCH_GRAD_BACKEND")
-    os.environ["DIRT_TPU_TORCH_GRAD_BACKEND"] = name
+def _environ(name, value):
+    """Within the block, environment variable `name` is `value`."""
+    saved = os.environ.get(name)
+    os.environ[name] = str(value)
     try:
         yield
     finally:
         if saved is None:
-            del os.environ["DIRT_TPU_TORCH_GRAD_BACKEND"]
+            del os.environ[name]
         else:
-            os.environ["DIRT_TPU_TORCH_GRAD_BACKEND"] = saved
+            os.environ[name] = saved
+
+
+@contextlib.contextmanager
+def _constants(module, **values):
+    """Within the block, the constants of dirt_tpu_torch.ops.`module` (set
+    from the environment at import) take `values`."""
+    mod = _ops_module(module)
+    saved = {name: getattr(mod, name) for name in values}
+    for name, value in values.items():
+        setattr(mod, name, value)
+    try:
+        yield
+    finally:
+        for name, value in saved.items():
+            setattr(mod, name, value)
+
+
+def slot_budget(slots):
+    """DIRT_TPU_TORCH_SLOTS_PER_IMAGE is `slots`."""
+    return _environ("DIRT_TPU_TORCH_SLOTS_PER_IMAGE", slots)
+
+
+@contextlib.contextmanager
+def slot_schedule():
+    """The forward and the gradient take the slot schedule
+    (forward_blocks.FUSED and grad_blocks.FUSED off)."""
+    with _constants("forward_blocks", FUSED=False), _constants(
+            "grad_blocks", FUSED=False):
+        yield
+
+
+def resident_table():
+    """forward_blocks.RESIDENT_MB is 0 (auto: the device's opt-in shared
+    memory per block)."""
+    return _constants("forward_blocks", RESIDENT_MB=0.0)
+
+
+def diagonal_dilation():
+    """The gradient pre-pass (K2 and its plain version) also tries the
+    four diagonal neighbours (backward.DIAGONAL)."""
+    return _constants("backward", DIAGONAL=True)
+
+
+def grad_backend(name):
+    """DIRT_TPU_TORCH_GRAD_BACKEND is `name` (the gradient every autograd
+    backward runs)."""
+    return _environ("DIRT_TPU_TORCH_GRAD_BACKEND", name)
 
 
 # Each kernel's wrapper and plain version, as (module under
@@ -518,17 +730,22 @@ def grad_backend(name):
 WRAPPERS = {
     "hit_plane": ("forward_blocks", "hit_plane", "hit_plane_plain"),
     "raster_sweep": ("forward_blocks", "raster_sweep", "raster_sweep_plain"),
+    "slot_sweep": ("forward_blocks", "slot_sweep", "slot_sweep_plain"),
+    "resident_sweep": ("forward_blocks", "resident_sweep",
+                       "resident_sweep_plain"),
     "dense_sweep": ("forward_dense", "dense_sweep", "dense_sweep_plain"),
     "grad_prepass": ("prepass_fused", "plane_stack", "plane_stack_plain"),
     "grad_reduce": ("grad_blocks", "grad_reduce", "grad_reduce_plain"),
+    "slot_grad_reduce": ("grad_blocks", "slot_grad_reduce",
+                         "slot_grad_reduce_plain"),
     "dense_grad_reduce": ("grad_dense", "dense_grad_reduce",
                           "dense_grad_reduce_plain"),
     "pallas_raster": ("forward_pallas", "pallas_raster",
                       "pallas_raster_plain"),
     "mxu_grad": ("grad_mxu", "mxu_grad", "mxu_grad_plain"),
 }
-BITWISE = ("hit_plane", "raster_sweep", "dense_sweep", "grad_prepass",
-           "pallas_raster")
+BITWISE = ("hit_plane", "raster_sweep", "slot_sweep", "resident_sweep",
+           "dense_sweep", "grad_prepass", "pallas_raster")
 
 
 def _ops_module(name):
@@ -565,8 +782,8 @@ def recording():
 
 def check_recorded(tag, path, calls):
     """Holds each recorded kernel call against its plain version on the
-    same arguments: K4, K1, K7, K2 and K8 bitwise, K3, K9 and K10 within
-    ROW_TOL;
+    same arguments: K4, K1, K5b, K5, K7, K2 and K8 bitwise, K3, K6, K9
+    and K10 within ROW_TOL;
     fails if a kernel of `path` has no recorded call.  Returns {kernel:
     [shape of each call's first result]}."""
     checked = {}
@@ -648,17 +865,44 @@ def _check_grads(tag, pairs):
             fail(f"{tag}: {name} differs by {err} > {GRAD_TOL} (normalised)")
 
 
+def _check_same_forward(tag, got, want):
+    """Pixels and every aux field equal, `dropped` included."""
+    for name, g, w in [("pixels", got[0], want[0])] + [
+            (field, getattr(got[1], field), getattr(want[1], field))
+            for field in got[1]._fields]:
+        if not torch.equal(g, w):
+            fail(f"{tag}: {name} differ from the blocks path's (max "
+                 f"{_max_abs(g, w)})")
+
+
+def _check_plain_gradient(tag, scene, pixels, aux, grads):
+    """The step's gradients against the plain scatter gradient of the same
+    forward output: grad_background equal and finite, the others within
+    GRAD_TOL."""
+    from dirt_tpu_torch.ops import backward
+    _, clip, _, faces, weights = scene
+    g_bg, g_clip, g_colors = grads
+    want_bg, want_v, want_c = backward.rasterise_grad_grouped(
+        clip, faces, pixels, weights, aux, implementation="xla")
+    if not torch.equal(g_bg, want_bg):
+        fail(f"{tag}: grad_background differs from the plain gradient")
+    if not bool(torch.isfinite(g_bg).all()):
+        fail(f"{tag}: grad_background has non-finite values")
+    _check_grads(tag, (("grad_vertices", g_clip, want_v),
+                       ("grad_vertex_colors", g_colors, want_c)))
+
+
 def check_main_path(scene, backend="blocks"):
     """Drives the direct path on `backend` and checks it (phase 4a/4b/4d);
     returns the launches of its kernels."""
     import dirt_tpu_torch
-    from dirt_tpu_torch.ops import backward, dispatch
+    from dirt_tpu_torch.ops import dispatch
     from dirt_tpu_torch.utils import oracle
-    background, clip, colors, faces, weights = scene
+    background, clip, colors, faces, _ = scene
 
     with recording() as calls:
-        (pixels, (g_bg, g_clip, g_colors)), launches = counted(
-            backend, lambda: step(scene, backend))
+        (pixels, grads), launches = counted(backend,
+                                            lambda: step(scene, backend))
     phase(backend, f"launches in one step: {launches}")
     shapes = check_recorded(backend, backend, calls)
     phase(backend, f"each kernel call of the step == (K3/K9/K10 within "
@@ -690,22 +934,10 @@ def check_main_path(scene, backend="blocks"):
         fail(f"{backend}: winner map differs from the {other} backend's")
     if backend == "pallas":
         # The same expressions as the blocks backend's finalize.
-        for name, got, want in [("pixels", pixels, other_px)] + [
-                (field, getattr(aux, field), getattr(other_aux, field))
-                for field in aux._fields]:
-            if not torch.equal(got, want):
-                fail(f"pallas: {name} differ from the blocks backend's (max "
-                     f"{_max_abs(got, want)})")
+        _check_same_forward("pallas", (pixels, aux), (other_px, other_aux))
         other = "blocks (pixels and every aux field ==)"
 
-    want_bg, want_v, want_c = backward.rasterise_grad_grouped(
-        clip, faces, pixels, weights, aux, implementation="xla")
-    if not torch.equal(g_bg, want_bg):
-        fail(f"{backend}: grad_background differs from the plain gradient")
-    _check_grads(backend, (("grad_vertices", g_clip, want_v),
-                           ("grad_vertex_colors", g_colors, want_c)))
-    if not bool(torch.isfinite(g_bg).all()):
-        fail(f"{backend}: grad_background has non-finite values")
+    _check_plain_gradient(backend, scene, pixels, aux, grads)
     phase(backend, f"oracle winner map == and pixels within 1e-4; {other} "
           f"winner map ==; gradients vs plain within 3e-6; finite; "
           f"dropped 0")
@@ -768,24 +1000,18 @@ def check_mxu_path(scene, dscene):
     """Drives the blocks forward with DIRT_TPU_TORCH_GRAD_BACKEND=mxu and
     checks it (phase 4e); returns the launches of its kernels."""
     import dirt_tpu_torch
-    from dirt_tpu_torch.ops import backward, dispatch
+    from dirt_tpu_torch.ops import dispatch
     background, clip, colors, faces, weights = scene
 
     with recording() as calls:
-        (pixels, (g_bg, g_clip, g_colors)), launches = counted(
-            "mxu", lambda: mxu_step(scene))
+        (pixels, grads), launches = counted("mxu", lambda: mxu_step(scene))
     phase("mxu", f"launches in one step: {launches}")
     shapes = check_recorded("mxu", "mxu", calls)
     phase("mxu", f"each kernel call of the step == (K10 within {ROW_TOL}) "
           f"its plain version on the same inputs: {shapes}")
     _, aux = dispatch.forward_batch(background, clip, colors, faces,
                                     "blocks")
-    want_bg, want_v, want_c = backward.rasterise_grad_grouped(
-        clip, faces, pixels, weights, aux, implementation="xla")
-    if not torch.equal(g_bg, want_bg):
-        fail("mxu: grad_background differs from the plain gradient")
-    _check_grads("mxu", (("grad_vertices", g_clip, want_v),
-                         ("grad_vertex_colors", g_colors, want_c)))
+    _check_plain_gradient("mxu", scene, pixels, aux, grads)
 
     args = (background[0], clip[0], colors[0], faces[0], weights[0])
     got, got_debug = dirt_tpu_torch.rasterise_grad_debug(
@@ -815,6 +1041,141 @@ def check_mxu_path(scene, dscene):
           f"{shapes}, each == its plain version) vs the fused blocks "
           f"deferred step within 3e-6")
     return launches
+
+
+def slots_step(scene):
+    """step() on the slot schedule, forward and gradient."""
+    with slot_schedule():
+        return step(scene, "blocks")
+
+
+def resident_step(scene):
+    """step() with the resident-table forward on auto."""
+    with resident_table():
+        return step(scene, "blocks")
+
+
+def check_slots_path(scene, dscene):
+    """Drives the slot schedule (phase 4f) and checks it; returns the
+    launches of its kernels."""
+    import dirt_tpu_torch
+    from dirt_tpu_torch.ops import _cuda
+    background, clip, colors, faces, _ = scene
+    with recording() as calls:
+        (pixels, grads), launches = counted("slots",
+                                            lambda: slots_step(scene))
+    phase("slots", f"launches in one step: {launches}")
+    fused = [_cuda.KERNELS[name].launches
+             for name in ("raster_sweep", "grad_reduce")]
+    if any(fused):
+        fail(f"slots: the step launched K1/K3 {fused} times")
+    shapes = check_recorded("slots", "slots", calls)
+    phase("slots", f"each kernel call of the step == (K6 within {ROW_TOL}) "
+          f"its plain version on the same inputs: {shapes}")
+    blocks = dirt_tpu_torch.rasterise_batch_with_aux(
+        background, clip, colors, faces, backend="blocks")
+    with slot_schedule():
+        got = dirt_tpu_torch.rasterise_batch_with_aux(
+            background, clip, colors, faces, backend="blocks")
+    _check_same_forward("slots", got, blocks)
+    if not torch.equal(pixels, blocks[0]):
+        fail("slots: the step's pixels differ from the blocks path's")
+    _check_plain_gradient("slots", scene, pixels, blocks[1], grads)
+
+    with slot_schedule(), recording() as calls:
+        _, slot_grads = deferred_step(dscene, "blocks")
+    shapes = check_recorded("slots deferred", "slots", calls)
+    _, fused_grads = deferred_step(dscene, "blocks")
+    _check_grads("slots deferred", zip(
+        ("grad_background", "grad_vertices", "grad_attributes",
+         "light gradient"), slot_grads, fused_grads))
+    phase("slots", f"pixels and every aux field == the blocks path's; "
+          f"gradients vs plain within 3e-6; deferred step (kernel calls "
+          f"{shapes}, each == its plain version) vs the fused blocks "
+          f"deferred step within 3e-6")
+    return launches
+
+
+def check_resident_path(scene, large_scene):
+    """Drives the resident-table forward on auto (phase 4g) and checks it;
+    returns the launches of its kernels."""
+    import dirt_tpu_torch
+    from dirt_tpu_torch.ops import _cuda, dispatch
+    background, clip, colors, faces, _ = scene
+    with recording() as calls:
+        (pixels, grads), launches = counted("resident",
+                                            lambda: resident_step(scene))
+    phase("resident", f"launches in one step: {launches}")
+    if _cuda.KERNELS["raster_sweep"].launches:
+        fail("resident: the step launched K1")
+    shapes = check_recorded("resident", "resident", calls)
+    blocks = dirt_tpu_torch.rasterise_batch_with_aux(
+        background, clip, colors, faces, backend="blocks")
+    with resident_table():
+        got = dirt_tpu_torch.rasterise_batch_with_aux(
+            background, clip, colors, faces, backend="blocks")
+    _check_same_forward("resident", got, blocks)
+    if not torch.equal(pixels, blocks[0]):
+        fail("resident: the step's pixels differ from the blocks path's")
+    _check_plain_gradient("resident", scene, pixels, blocks[1], grads)
+
+    _cuda.reset_counts()
+    with resident_table():
+        dispatch.forward_batch(*large_scene[:4], "blocks")
+    torch.cuda.synchronize()
+    large = {name: _cuda.KERNELS[name].launches
+             for name in ("raster_sweep", "resident_sweep")}
+    if large != {"raster_sweep": 1, "resident_sweep": 0}:
+        fail(f"resident: the 8192-face forward launched {large}")
+    phase("resident", f"each kernel call == its plain version: {shapes}; "
+          f"pixels and every aux field == the blocks path's; gradients vs "
+          f"plain within 3e-6; the 8192-face forward (table over the "
+          f"{_cuda.shared_memory_optin(clip.device)}-byte opt-in shared "
+          f"memory) launched {large}")
+    return launches
+
+
+def check_repro(device):
+    """Runs K11 on the repro's sizes and on 256 tiles x 8 chunks with
+    random counts (phase 4h); returns (launches, {name: (kernel call,
+    plain call)}, max |kernel - plain| on the larger, its bound's bytes
+    and operations, its library call)."""
+    from dirt_tpu_torch.repro import scalar_accum as sa
+    instances = {
+        "repro 4 tiles x 2 chunks": sa.repro_inputs(),
+        "256 tiles x 8 chunks": sa.repro_inputs(tiles=256, chunks=8, seed=1,
+                                                random_counts=True)}
+    tensors = {tag: [torch.as_tensor(a, device=device) for a in arrays]
+               for tag, arrays in instances.items()}
+    outs, launches = counted("repro", lambda: {
+        tag: sa.scalar_accum(*t) for tag, t in tensors.items()})
+    for tag, got in outs.items():
+        want = sa.scalar_accum_plain(*tensors[tag], sa.CHUNK)
+        rel = _max_abs(got, want) / max(float(want.abs().max()), 1.0)
+        ref = repro_reference(*instances[tag], sa.CHUNK)
+        err = float(np.abs(got.cpu().numpy() - ref).max())
+        if not (rel <= ROW_TOL and err < 1e-3
+                and bool(torch.isfinite(got).all())):
+            fail(f"repro {tag}: scalar_accum rel {rel} vs plain, max err "
+                 f"{err} vs the numpy reference")
+        phase("repro", f"{tag}: K11 scalar_accum rel {rel:.2e} vs its plain "
+              f"version, max err {err:.2e} vs the numpy reference OK")
+    planes, ids, counts = tensors["256 tiles x 8 chunks"]
+    tiles, num_ids = ids.shape[0], ids.shape[-1]
+    live = (torch.arange(num_ids, device=device)[None]
+            < counts.reshape(tiles, 1))
+    matches = int(((planes[:, 2].reshape(tiles, 1, -1)
+                    == ids.reshape(tiles, -1, 1)) & live[..., None]).sum())
+    pix = planes[0, 0].numel()
+    work = (_nbytes(planes, ids, counts) + tiles * num_ids * 4 * 4,
+            int(live.sum()) * pix * OPS_ACCUM_SCAN
+            + matches * OPS_ACCUM_MATCH)
+    return (launches,
+            (lambda: sa.scalar_accum(planes, ids, counts),
+             lambda: sa.scalar_accum_plain(planes, ids, counts, sa.CHUNK)),
+            _max_abs(outs["256 tiles x 8 chunks"],
+                     sa.scalar_accum_plain(planes, ids, counts, sa.CHUNK)),
+            work, lambda: accum_bmm(planes, ids, counts, sa.CHUNK))
 
 
 # --------------------------------------------------------------------------
@@ -903,11 +1264,15 @@ def main():
     scene = bench_scene(16, 256, 64, device)
     errors, calls, info = compare_kernels("bench 16x256^2x512f", scene)
     compare_kernels("100x100", bench_scene(4, 100, 64, device))
-    compare_kernels("camera-crossing", crossing_scene(device))
-    compare_kernels("1x256^2x8192f", bench_scene(1, 256, 1024, device))
+    crossing = crossing_scene(device)
+    compare_kernels("camera-crossing", crossing)
+    check_truncated("camera-crossing", crossing)
+    large_scene = bench_scene(1, 256, 1024, device)
+    compare_kernels("1x256^2x8192f", large_scene)
 
     # 4. Paths; each kernel's launches are those of the first path that
-    # runs it (K1-K4 blocks, K7/K9 dense, K8 pallas, K10 mxu).
+    # runs it (K1-K4 blocks, K7/K9 dense, K8 pallas, K10 mxu, K5b/K6
+    # slots, K5 resident, K11 repro).
     launches = {}
     dscene = deferred_scene(scene)
     path_launches = [check_main_path(scene, backend)
@@ -915,7 +1280,13 @@ def main():
     deferred_launches = {backend: check_deferred_path(dscene, backend)
                          for backend in ("blocks", "dense")}
     path_launches += [check_main_path(scene, "pallas"),
-                      check_mxu_path(scene, dscene)]
+                      check_mxu_path(scene, dscene),
+                      check_slots_path(scene, dscene),
+                      check_resident_path(scene, large_scene)]
+    repro_launches, calls["scalar_accum"], errors["scalar_accum"], \
+        info["work"]["scalar_accum"], info["libraries"]["scalar_accum"] = \
+        check_repro(device)
+    path_launches.append(repro_launches)
     for counts in path_launches:
         for name, n in counts.items():
             launches.setdefault(name, n)
@@ -928,6 +1299,8 @@ def main():
         "deferred dense": lambda: deferred_step(dscene, "dense"),
         "pallas direct": lambda: step(scene, "pallas"),
         "mxu direct": lambda: mxu_step(scene),
+        "slots direct": lambda: slots_step(scene),
+        "resident direct": lambda: resident_step(scene),
     }
     steps = {name: time_ms(run, STEPS) for name, run in paths.items()}
     for name, run in paths.items():
@@ -966,6 +1339,9 @@ def main():
     phase("timing", f"deferred launches per step: {deferred_launches}")
 
     # 6. Result
+    missing = sorted(set(_cuda.KERNELS) - {k["name"] for k in kernels})
+    if missing:
+        fail(f"no measurements of {missing}")
     print(json.dumps({"kernels": kernels}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

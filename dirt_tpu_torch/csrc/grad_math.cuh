@@ -1,6 +1,7 @@
 // The per-pixel arithmetic of the gradient reductions, shared by K3
-// grad_reduce (grad_reduce.cu, face-major) and K9 dense_grad_reduce
-// (dense_grad.cu, tile-major) so the two cannot drift.  One thread owns one
+// grad_reduce (grad_reduce.cu, face-major), K6 slot_grad_reduce
+// (slot_grad.cu, face-major on slot lists) and K9 dense_grad_reduce
+// (dense_grad.cu, tile-major) so they cannot drift.  One thread owns one
 // face and adds, over pixels held in shared memory, grad_dense._chunk_sums'
 // masked sums:
 //   gx_k += bary_d_k * ax, gy_k += bary_d_k * ay,
@@ -97,6 +98,54 @@ __device__ __forceinline__ void write_sums(float* dst, int d_corner,
     for (int c = 0; c < kGroup; ++c) {
       if (c < nc) d[col_base + c0 + c] = s.gc[k][c];
     }
+  }
+}
+
+// Reduces one face's row over a run of n tile visits, in K3's order:
+// colour passes of kGroup channels (the first pass also takes the
+// position terms), each walking the visits in order and each visit's
+// pixels in order.  tile_at(i) gives visit i's tile in `planes` ([tiles,
+// n_planes, pix]), or a negative value for a visit to skip (the same for
+// every thread).  Each visit's planes are staged in shared memory `tile`;
+// every thread of the block must call it (it synchronises).  The row
+// [3, d_out / 3] is written to dst: zeros when no visit is live.  Used by
+// K3 grad_reduce (CSR runs) and K6 slot_grad_reduce (slot lists), so the
+// two sum in the same order and agree bit for bit.
+template <typename TileAt>
+__device__ __forceinline__ void reduce_run(const float* planes, int n,
+                                           TileAt tile_at, float* tile,
+                                           int n_planes, int pix,
+                                           const GradFace& face,
+                                           const GradLayout& layout,
+                                           bool want_pos, int channels,
+                                           int d_out, float* dst) {
+  const bool want_col = layout.fp >= 0;
+  const int d_corner = d_out / 3;
+  const int col_base = want_pos ? 3 : 0;
+  const int tile_floats = n_planes * pix;
+  const int passes = want_col ? (channels + kGroup - 1) / kGroup : 1;
+  for (int pass = 0; pass < passes; ++pass) {
+    const bool do_pos = want_pos && pass == 0;
+    const int c0 = pass * kGroup;
+    const int nc = want_col ? min(kGroup, channels - c0) : 0;
+    GradSums sums;
+    clear_sums(sums);
+
+    for (int i = 0; i < n; ++i) {
+      const long long tid = tile_at(i);
+      if (tid < 0) continue;
+      __syncthreads();
+      const float* src = planes + tid * tile_floats;
+      for (int j = threadIdx.x; j < tile_floats; j += blockDim.x) {
+        tile[j] = src[j];
+      }
+      __syncthreads();
+      for (int p = 0; p < pix; ++p) {
+        add_pixel(tile, pix, p, face, layout, do_pos, want_col, c0, nc,
+                  sums);
+      }
+    }
+    write_sums(dst, d_corner, do_pos, col_base, c0, nc, sums);
   }
 }
 

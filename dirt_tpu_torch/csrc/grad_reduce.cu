@@ -12,8 +12,9 @@
 //   gx_k += bary_d_k * ax, gy_k += bary_d_k * ay,
 //   gw_k += bary_d_k * (Px * cx + Py * cy)      where face_d == fid,
 //   colour_kc += bary_pre_k * grad_c             where face_pre == fid,
-// in registers (gw is negated at the end), with grad_math.cuh's per-pixel
-// arithmetic (shared with K9 dense_grad_reduce).  No atomics: each face row
+// in registers (gw is negated at the end), with grad_math.cuh's run walk
+// (shared with K6 slot_grad_reduce) and per-pixel arithmetic (shared with
+// K9 dense_grad_reduce).  No atomics: each face row
 // has one owner and a fixed summation order, so the rows are deterministic.
 // Colour channels are reduced in passes of four (re-walking the run), so
 // any channel count fits the register budget.
@@ -50,38 +51,12 @@ __global__ void grad_reduce_kernel(
   const int f = threadIdx.x;
   const dirt::GradFace face = dirt::load_grad_face(
       table + ((long long)run * chunk + f) * width_d);
-  const bool want_col = layout.fp >= 0;
-  const int d_corner = d_out / 3;
-  const int col_base = want_pos ? 3 : 0;
-  float* dst = out + ((long long)run * chunk + f) * d_out;
-
   const int start = starts[run];
-  const int n = counts[run];
-  const int tile_floats = n_planes * pix;
-  const int passes = want_col ? (channels + dirt::kGroup - 1) / dirt::kGroup
-                              : 1;
-  for (int pass = 0; pass < passes; ++pass) {
-    const bool do_pos = want_pos && pass == 0;
-    const int c0 = pass * dirt::kGroup;
-    const int nc = want_col ? min(dirt::kGroup, channels - c0) : 0;
-    dirt::GradSums sums;
-    dirt::clear_sums(sums);
-
-    for (int i = 0; i < n; ++i) {
-      const long long tid = tile_ids[start + i];
-      __syncthreads();
-      const float* src = planes + tid * tile_floats;
-      for (int j = threadIdx.x; j < tile_floats; j += blockDim.x) {
-        tile[j] = src[j];
-      }
-      __syncthreads();
-      for (int p = 0; p < pix; ++p) {
-        dirt::add_pixel(tile, pix, p, face, layout, do_pos, want_col, c0, nc,
-                        sums);
-      }
-    }
-    dirt::write_sums(dst, d_corner, do_pos, col_base, c0, nc, sums);
-  }
+  dirt::reduce_run(
+      planes, counts[run],
+      [&](int i) { return (long long)tile_ids[start + i]; }, tile, n_planes,
+      pix, face, layout, want_pos, channels, d_out,
+      out + ((long long)run * chunk + f) * d_out);
 }
 
 }  // namespace

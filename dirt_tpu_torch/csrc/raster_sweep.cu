@@ -15,8 +15,9 @@
 // minimum is associative, so visiting faces one by one picks the same
 // winner as the TPU's chunk minimum followed by the merge.
 //
-// The per-face test and the state write are sweep_math.cuh's, shared with
-// K7 dense_sweep: the thread keeps the winner's depth, index, E0..E2, S_w
+// The block walk, the per-face test and the state write are
+// sweep_math.cuh's, shared with K5b slot_sweep, K5 resident_sweep and K7
+// dense_sweep: the thread keeps the winner's depth, index, E0..E2, S_w
 // and table row number in registers, and at the end reads the row's vertex
 // ids and corner attributes from global memory and writes the packed state
 // [C+9, PIX] of forward_dense.
@@ -64,18 +65,9 @@ __global__ void raster_sweep_kernel(
   dirt::Winner w;
   const int start = starts[bt];
   const int n = counts[bt];
-  const int block_floats = chunk * width_d;
   for (int i = 0; i < n; ++i) {
-    const long long bid = block_ids[start + i];
-    __syncthreads();
-    const float* src = table + bid * block_floats;
-    for (int j = threadIdx.x; j < block_floats; j += blockDim.x) {
-      rows[j] = src[j];
-    }
-    __syncthreads();
-    for (int k = 0; k < chunk; ++k) {
-      dirt::test_face(rows + k * width_d, xg, yg, bid * chunk + k, w);
-    }
+    dirt::sweep_block(table, block_ids[start + i], chunk, width_d, rows, xg,
+                      yg, w);
   }
 
   if (p >= pix) return;

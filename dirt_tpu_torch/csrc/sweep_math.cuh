@@ -60,6 +60,26 @@ __device__ __forceinline__ void test_face(const float* f, float xg, float yg,
   }
 }
 
+// Stages face block `bid` (chunk x width_d floats of `table`) in shared
+// memory `rows` and tests its rows in order at (xg, yg).  Every thread of
+// the block must call it (it synchronises); used by K1 raster_sweep and
+// K5b slot_sweep, which walk the same blocks in the same order.
+__device__ __forceinline__ void sweep_block(const float* table, long long bid,
+                                            int chunk, int width_d,
+                                            float* rows, float xg, float yg,
+                                            Winner& w) {
+  const int block_floats = chunk * width_d;
+  __syncthreads();
+  const float* src = table + bid * block_floats;
+  for (int j = threadIdx.x; j < block_floats; j += blockDim.x) {
+    rows[j] = src[j];
+  }
+  __syncthreads();
+  for (int k = 0; k < chunk; ++k) {
+    test_face(rows + k * width_d, xg, yg, bid * chunk + k, w);
+  }
+}
+
 // Walks one tile's face list: the n table rows ids[0 .. n), staged by
 // index into shared memory `rows` (chunk x width_d floats) `chunk` rows at
 // a time, each tested in list order at (xg, yg).  Every thread of the

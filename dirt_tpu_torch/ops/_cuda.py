@@ -31,8 +31,9 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("raster_sweep.cu", "hit_plane.cu", "grad_prepass.cu",
            "grad_reduce.cu", "dense_sweep.cu", "dense_grad.cu",
-           "pallas_raster.cu", "mxu_grad.cu")
-HEADERS = ("sweep_math.cuh", "grad_math.cuh")
+           "pallas_raster.cu", "mxu_grad.cu", "resident_sweep.cu",
+           "slot_sweep.cu", "slot_grad.cu", "scalar_accum.cu")
+HEADERS = ("sweep_math.cuh", "grad_math.cuh", "slots.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
@@ -110,6 +111,21 @@ class Kernel:
             raise RuntimeError(
                 f"CUDA kernel {self.name} failed to launch: error {err}")
         self.launches += 1
+
+
+def shared_memory_optin(device):
+    """The shared memory one block of `device` may opt in to, in bytes
+    (cudaDevAttrMaxSharedMemoryPerBlockOptin)."""
+    fn = load().dirt_shared_memory_optin
+    fn.argtypes = [i32, ctypes.POINTER(i32)]
+    fn.restype = ctypes.c_int
+    out = i32(0)
+    index = torch.device(device).index
+    err = fn(torch.cuda.current_device() if index is None else index,
+             ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"cudaDeviceGetAttribute failed: error {err}")
+    return out.value
 
 
 def reset_counts():

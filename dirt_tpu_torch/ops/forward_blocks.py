@@ -17,12 +17,37 @@ The schedule is the JAX package's fused-CSR one:
     keeps the lexicographic (depth, original index) winner per pixel;
   * forward_dense.finalize does the one division and the aux assembly.
 
+Two further schedules compute the same state bit for bit:
+
+  * the resident-table sweep (resident_sweep, kernel K5 on CUDA): when the
+    image's face table fits the RESIDENT_MB budget, one thread block
+    stages it in shared memory once for a group of tiles and reads each
+    visit's block by index;
+  * the slot schedule (FUSED off): build_slots lists one slot per (tile,
+    block) hit plus one mandatory slot per tile, and slot_sweep (kernel
+    K5b on CUDA) walks each tile's slots.  Tiles whose slots the static
+    budget cut are background.
+
+Switches, read at import (tests set the module constants):
+
+  * FUSED (DIRT_TPU_TORCH_BLOCKS_FUSED, default on): the CSR runs; "0"
+    selects the slot schedule;
+  * RESIDENT_MB (DIRT_TPU_TORCH_BLOCKS_RESIDENT_MB, default -1 = never):
+    the resident-table budget in MB, 0 = auto = the device's opt-in
+    shared memory per block; a positive value is capped by that limit;
+  * SPATIAL (DIRT_TPU_TORCH_SPATIAL_SORT, default on): the Morton sort of
+    the table rows, here and in the gradient's pack (ops/grad_blocks.py);
+  * EDGE_CULL (DIRT_TPU_TORCH_EDGE_CULL, default on): the half-plane
+    refinement of every block hit test.
+
 Tile shape and block size are parameters.  The defaults are this port's
-GPU shape (16x16-pixel tiles, one thread per pixel; 32-face blocks); the
-tests call the functions at the JAX package's shapes (4x128 tiles,
-64-face blocks) to compare with it bitwise.
+GPU shape for every schedule (16x16-pixel tiles, one thread per pixel;
+32-face blocks); the tests call the functions at the JAX package's shapes
+(4x128 tiles and 64-face blocks fused, 32x128 and 128 on slots) to
+compare with it bitwise.
 """
 
+import math
 import os
 
 import torch
@@ -33,6 +58,10 @@ TILE_H = 16
 TILE_W = 16
 CHUNK = 32
 _BBOX = (20, 21, 22, 23)
+FUSED = os.environ.get("DIRT_TPU_TORCH_BLOCKS_FUSED", "1") != "0"
+RESIDENT_MB = float(os.environ.get("DIRT_TPU_TORCH_BLOCKS_RESIDENT_MB", "-1"))
+SPATIAL = os.environ.get("DIRT_TPU_TORCH_SPATIAL_SORT", "1") != "0"
+EDGE_CULL = os.environ.get("DIRT_TPU_TORCH_EDGE_CULL", "1") != "0"
 
 
 def _cdiv(a, b):
@@ -95,6 +124,98 @@ def build_runs(hit, num_slots):
     item_ids.scatter_(1, pos, order.reshape(batch, -1).to(torch.int32))
     dropped = (n.sum(dim=-1, dtype=torch.int32) - num_slots).clamp(min=0)
     return starts, counts, item_ids[:, :num_slots].contiguous(), dropped
+
+
+def build_slots(hit, num_slots):
+    """Slot schedule from the [B, R, I] bool hit matrix: (slot_run [B, S],
+    slot_item [B, S], slot_dma [B, S], dropped [B]) int32, per image.
+
+    Consecutive slots of one run hold its hit items, ascending; a run
+    without hits still gets one slot with item -1, and the filler tail
+    repeats the last run with item -1.  slot_dma forward-fills the items
+    (0 before the first live slot).  `dropped` counts the slots, mandatory
+    ones included, that the static budget could not hold."""
+    batch, num_runs, num_items = hit.shape
+    device = hit.device
+    order = torch.argsort((~hit).to(torch.uint8), dim=-1, stable=True)
+    n = hit.sum(dim=-1, dtype=torch.int32)                   # [B, R]
+    m = n.clamp(min=1)                                       # >= 1 slot
+    start = m.cumsum(dim=-1, dtype=torch.int32) - m
+    j = torch.arange(num_items, dtype=torch.int32, device=device)
+    pos = torch.where(j < m[..., None], start[..., None] + j, num_slots)
+    pos = pos.clamp(max=num_slots).reshape(batch, -1).long()
+    run_of = torch.arange(num_runs, dtype=torch.int32,
+                          device=device)[:, None].expand(-1, num_items)
+    item_of = torch.where(j < n[..., None], order.to(torch.int32), -1)
+    slot_run = torch.zeros(batch, num_slots + 1, dtype=torch.int32,
+                           device=device)
+    slot_run.scatter_(1, pos, run_of.reshape(1, -1).expand(batch, -1))
+    slot_item = torch.full((batch, num_slots + 1), -1, dtype=torch.int32,
+                           device=device)
+    slot_item.scatter_(1, pos, item_of.reshape(batch, -1))
+    slot_run, slot_item = slot_run[:, :num_slots], slot_item[:, :num_slots]
+    # Filler tail: the last run again, with no item.
+    total = m.sum(dim=-1, dtype=torch.int32)
+    kept = total.clamp(max=num_slots)
+    last_run = torch.where(kept > 0, slot_run.gather(
+        1, (kept - 1).clamp(min=0).long()[:, None])[:, 0], 0)
+    idx = torch.arange(num_slots, dtype=torch.int32, device=device)
+    tail = idx >= kept[:, None]
+    slot_run = torch.where(tail, last_run[:, None], slot_run)
+    slot_item = torch.where(tail, -1, slot_item)
+    last_live = torch.cummax(torch.where(slot_item >= 0, idx, -1),
+                             dim=-1).values
+    slot_dma = torch.where(last_live >= 0, slot_item.gather(
+        1, last_live.clamp(min=0).long()), 0)
+    dropped = (total - num_slots).clamp(min=0)
+    return (slot_run.contiguous(), slot_item.contiguous(),
+            slot_dma.contiguous(), dropped)
+
+
+def slot_runs(slot_run, slot_item, slot_dma, num_runs):
+    """The CSR form (starts, counts, item_ids [L]) of a batch-folded slot
+    list: run r's live slots (item >= 0), in slot order, with the
+    batch-folded items of slot_dma."""
+    live = slot_item >= 0
+    counts = torch.bincount(slot_run[live].long(), minlength=num_runs)
+    starts = counts.cumsum(0) - counts
+    return (starts.to(torch.int32), counts.to(torch.int32),
+            slot_dma[live].contiguous())
+
+
+def group_for(num_tiles):
+    """Tiles per block of the resident sweep: the largest of 8, 4 and 2
+    that divides the tile count (groups never straddle images), else 1."""
+    for g in (8, 4, 2):
+        if num_tiles % g == 0:
+            return g
+    return 1
+
+
+def resident_budget_bytes(limit):
+    """The resident-table budget in bytes under RESIDENT_MB: 0 for -1
+    (never), `limit` for 0 (auto), else the MB value capped by `limit`.
+    `limit` is the device's opt-in shared memory per block, or None for
+    CPU tensors, whose plain version has no such bound (auto then admits
+    every table)."""
+    if RESIDENT_MB < 0:
+        return 0
+    if RESIDENT_MB == 0:
+        return math.inf if limit is None else limit
+    want = int(RESIDENT_MB * 1024 * 1024)
+    return want if limit is None else min(want, limit)
+
+
+def takes_resident(face_table, num_images):
+    """True when the per-image table of `face_table` ([B*NB, chunk, D])
+    fits resident_budget_bytes on its device (queried for CUDA)."""
+    if RESIDENT_MB < 0:
+        return False
+    table_bytes = face_table[0].numel() * 4 * (face_table.shape[0]
+                                               // num_images)
+    limit = (_cuda.shared_memory_optin(face_table.device)
+             if _cuda.on_cuda(face_table) else None)
+    return table_bytes <= resident_budget_bytes(limit)
 
 
 # --------------------------------------------------------------------------
@@ -192,8 +313,11 @@ def hit_matrix(face_data, bbox_cols, num_blocks, chunk,
                tiles_y, tiles_x, tile_h, tile_w,
                edge_cols=None, height=None, width=None, dilate=0):
     """[B, T, NB] bool: block hits tile iff some member face is kept by the
-    hit plane (bbox overlap, plus the half-plane cull with `edge_cols`,
-    the column of the first of 9 consecutive edge coefficients)."""
+    hit plane (bbox overlap, plus, when EDGE_CULL is on, the half-plane
+    cull with `edge_cols`, the column of the first of 9 consecutive edge
+    coefficients)."""
+    if not EDGE_CULL:
+        edge_cols = None
     keep = hit_plane(face_data, bbox_cols, tiles_y, tiles_x, tile_h, tile_w,
                      edge_cols, height, width, dilate)
     batch = face_data.shape[0]
@@ -255,25 +379,152 @@ def raster_sweep(face_table, starts, counts, block_ids, channels,
     return state
 
 
-def pack(vertices, vertex_colors, faces, height, width, tile_h, tile_w,
-         chunk):
-    """The forward schedule for a batch: (face_table [B*NB, chunk, D],
-    starts [B*T], counts [B*T], block_ids [B*S], dropped [B]), with the
-    CSR ids folded over the batch."""
-    batch, num_faces = faces.shape[:2]
-    num_blocks = _cdiv(num_faces, chunk)
-    tiles_y, tiles_x = _cdiv(height, tile_h), _cdiv(width, tile_w)
-    num_tiles = tiles_y * tiles_x
-    num_slots = slots_per_image(num_tiles, num_blocks)
+# --------------------------------------------------------------------------
+# K5: the resident-table sweep
+# --------------------------------------------------------------------------
 
+RESIDENT_SWEEP = _cuda.Kernel(
+    "resident_sweep", "dirt_resident_sweep",
+    [_cuda.ptr] * 5 + [_cuda.i32] * 10 + [_cuda.f32] * 2 + [_cuda.ptr],
+    replaces="dirt_tpu/ops/forward_blocks.py:529",
+    source="resident_sweep.cu")
+
+
+def resident_sweep_plain(face_table, starts, counts, block_ids, channels,
+                         height, width, tiles_x, num_tiles, tile_h, tile_w):
+    """raster_sweep_plain's state, each visit reading its rows from the
+    image's own table [NB, chunk, D] by per-image block index."""
+    batch = starts.shape[0] // num_tiles
+    num_blocks = face_table.shape[0] // batch
+    tables = face_table.reshape(batch, num_blocks, *face_table.shape[1:])
+    last = block_ids.shape[0] - 1
+
+    def visit_rows(r0, r1, m):
+        image = torch.arange(r0, r1, device=starts.device) // num_tiles
+        bid = block_ids[(starts[r0:r1].long() + m).clamp(max=last)]
+        return tables[image, bid.long() % num_blocks]
+    return forward_dense.sweep_plain(visit_rows, counts, channels, height,
+                                     width, tiles_x, num_tiles, tile_h,
+                                     tile_w, face_table.shape[1])
+
+
+def resident_sweep(face_table, starts, counts, block_ids, channels,
+                   height, width, tiles_x, num_tiles, tile_h, tile_w):
+    """K5 wrapper: resident_sweep_plain's state (equal to raster_sweep's
+    bit for bit), by the CUDA kernel for CUDA tensors and by the plain
+    version for CPU tensors.  The arguments are raster_sweep's; the
+    kernel holds each image's table (NB * chunk * D floats) in shared
+    memory, and its launch fails where the table exceeds the device's
+    opt-in shared memory per block."""
+    if not _cuda.on_cuda(face_table, starts, counts, block_ids):
+        return resident_sweep_plain(face_table, starts, counts, block_ids,
+                                    channels, height, width, tiles_x,
+                                    num_tiles, tile_h, tile_w)
+    runs = starts.shape[0]
+    chunk, width_d = face_table.shape[1], face_table.shape[2]
+    pix = tile_h * tile_w
+    if pix > 1024:
+        raise ValueError(f"resident_sweep runs one thread per pixel: a "
+                         f"{tile_h}x{tile_w} tile exceeds 1024 threads")
+    num_blocks = face_table.shape[0] // (runs // num_tiles)
+    state = torch.empty(runs, channels + 9, pix, device=face_table.device)
+    RESIDENT_SWEEP(
+        _cuda.check("face_table", face_table, torch.float32),
+        _cuda.check("starts", starts, torch.int32, (runs,)),
+        _cuda.check("counts", counts, torch.int32, (runs,)),
+        _cuda.check("block_ids", block_ids, torch.int32),
+        _cuda.check("state", state, torch.float32),
+        runs, group_for(num_tiles), num_blocks, num_tiles, tiles_x, tile_h,
+        tile_w, chunk, width_d, channels, 2.0 / width, 2.0 / height,
+        _cuda.stream())
+    return state
+
+
+# --------------------------------------------------------------------------
+# K5b: the sweep over slot lists
+# --------------------------------------------------------------------------
+
+SLOT_SWEEP = _cuda.Kernel(
+    "slot_sweep", "dirt_slot_sweep",
+    [_cuda.ptr] * 5 + [_cuda.i32] * 9 + [_cuda.f32] * 2 + [_cuda.ptr],
+    replaces="dirt_tpu/ops/forward_blocks.py:445", source="slot_sweep.cu")
+
+
+def slot_sweep_plain(face_table, slot_tile, slot_block, slot_dma, batch,
+                     channels, height, width, tiles_x, num_tiles, tile_h,
+                     tile_w):
+    """Per-pixel state [B*T, C+9, PIX] of the slot schedule: tile bt
+    sweeps the face blocks of its live slots (slot_tile == bt, slot_block
+    >= 0) in slot order; a tile without one keeps the background."""
+    starts, counts, block_ids = slot_runs(slot_tile, slot_block, slot_dma,
+                                          batch * num_tiles)
+    return raster_sweep_plain(face_table, starts, counts, block_ids,
+                              channels, height, width, tiles_x, num_tiles,
+                              tile_h, tile_w)
+
+
+def slot_sweep(face_table, slot_tile, slot_block, slot_dma, batch, channels,
+               height, width, tiles_x, num_tiles, tile_h, tile_w):
+    """K5b wrapper: slot_sweep_plain's state, by the CUDA kernel for CUDA
+    tensors and by the plain version for CPU tensors.
+
+    face_table [B*NB, chunk, D] f32; slot_tile [B*S] (batch-folded tile,
+    non-decreasing), slot_block [B*S] (per-image block, -1 for no-op
+    slots) and slot_dma [B*S] (batch-folded block) int32."""
+    if not _cuda.on_cuda(face_table, slot_tile, slot_block, slot_dma):
+        return slot_sweep_plain(face_table, slot_tile, slot_block, slot_dma,
+                                batch, channels, height, width, tiles_x,
+                                num_tiles, tile_h, tile_w)
+    runs = batch * num_tiles
+    slots = slot_tile.shape[0]
+    chunk, width_d = face_table.shape[1], face_table.shape[2]
+    pix = tile_h * tile_w
+    if pix > 1024:
+        raise ValueError(f"slot_sweep runs one thread per pixel: a "
+                         f"{tile_h}x{tile_w} tile exceeds 1024 threads")
+    state = torch.empty(runs, channels + 9, pix, device=face_table.device)
+    SLOT_SWEEP(
+        _cuda.check("face_table", face_table, torch.float32),
+        _cuda.check("slot_tile", slot_tile, torch.int32, (slots,)),
+        _cuda.check("slot_block", slot_block, torch.int32, (slots,)),
+        _cuda.check("slot_dma", slot_dma, torch.int32, (slots,)),
+        _cuda.check("state", state, torch.float32),
+        runs, slots, num_tiles, tiles_x, tile_h, tile_w, chunk, width_d,
+        channels, 2.0 / width, 2.0 / height, _cuda.stream())
+    return state
+
+
+# --------------------------------------------------------------------------
+# Schedules
+# --------------------------------------------------------------------------
+
+def _table_and_hits(vertices, vertex_colors, faces, height, width, tile_h,
+                    tile_w, chunk):
+    """The face table [B, NB*chunk, D] (Morton-sorted when SPATIAL) and
+    its [B, T, NB] block hits."""
+    num_blocks = _cdiv(faces.shape[1], chunk)
+    tiles_y, tiles_x = _cdiv(height, tile_h), _cdiv(width, tile_w)
     face_data = forward_pallas._face_table(
         vertices, vertex_colors, faces, height, width,
-        num_blocks * chunk - num_faces)
-    order = spatial_order(face_data, _BBOX, tile_h, tile_w)
-    face_data = torch.take_along_dim(face_data, order[..., None].long(),
-                                     dim=1).contiguous()
+        num_blocks * chunk - faces.shape[1])
+    if SPATIAL:
+        order = spatial_order(face_data, _BBOX, tile_h, tile_w)
+        face_data = torch.take_along_dim(face_data, order[..., None].long(),
+                                         dim=1).contiguous()
     hit = hit_matrix(face_data, _BBOX, num_blocks, chunk, tiles_y, tiles_x,
                      tile_h, tile_w, edge_cols=0, height=height, width=width)
+    return face_data, hit
+
+
+def pack(vertices, vertex_colors, faces, height, width, tile_h, tile_w,
+         chunk):
+    """The fused schedule for a batch: (face_table [B*NB, chunk, D],
+    starts [B*T], counts [B*T], block_ids [B*S], dropped [B]), with the
+    CSR ids folded over the batch."""
+    face_data, hit = _table_and_hits(vertices, vertex_colors, faces, height,
+                                     width, tile_h, tile_w, chunk)
+    batch, num_tiles, num_blocks = hit.shape
+    num_slots = slots_per_image(num_tiles, num_blocks)
     starts, counts, block_ids, dropped = build_runs(hit, num_slots)
     boff = torch.arange(batch, dtype=torch.int32, device=faces.device)[:, None]
     return (face_data.reshape(batch * num_blocks, chunk, -1),
@@ -283,9 +534,30 @@ def pack(vertices, vertex_colors, faces, height, width, tile_h, tile_w,
             dropped)
 
 
+def pack_slots(vertices, vertex_colors, faces, height, width, tile_h, tile_w,
+               chunk):
+    """The slot schedule for a batch: (face_table [B*NB, chunk, D],
+    slot_tile [B*S], slot_block [B*S], slot_dma [B*S], dropped [B]);
+    slot_tile and slot_dma are folded over the batch, slot_block stays
+    per image (dirt_tpu's layout)."""
+    face_data, hit = _table_and_hits(vertices, vertex_colors, faces, height,
+                                     width, tile_h, tile_w, chunk)
+    batch, num_tiles, num_blocks = hit.shape
+    num_slots = slots_per_image(num_tiles, num_blocks)
+    slot_tile, slot_block, slot_dma, dropped = build_slots(hit, num_slots)
+    boff = torch.arange(batch, dtype=torch.int32, device=faces.device)[:, None]
+    return (face_data.reshape(batch * num_blocks, chunk, -1),
+            (slot_tile + num_tiles * boff).reshape(-1),
+            slot_block.reshape(-1),
+            (slot_dma + num_blocks * boff).reshape(-1),
+            dropped)
+
+
 def rasterise_batch(background, vertices, vertex_colors, faces,
                     tile_h=TILE_H, tile_w=TILE_W, chunk=CHUNK):
-    """Batched forward rasterisation through the block-binned schedule.
+    """Batched forward rasterisation through the block-binned schedule:
+    the CSR runs swept by K1, or by K5 when RESIDENT_MB admits the
+    image's table; the slot schedule (K5b) when FUSED is off.
 
     Returns (pixels [B, H, W, C], reference.RasterAux); visibility matches
     the reference backend bit-exactly on tie-free scenes (the same
@@ -298,10 +570,21 @@ def rasterise_batch(background, vertices, vertex_colors, faces,
                                          faces)
     tiles_y, tiles_x = _cdiv(height, tile_h), _cdiv(width, tile_w)
     num_tiles = tiles_y * tiles_x
-    face_table, starts, counts, block_ids, dropped = pack(
-        vertices, vertex_colors, faces, height, width, tile_h, tile_w, chunk)
-    state = raster_sweep(face_table, starts, counts, block_ids, channels,
-                         height, width, tiles_x, num_tiles, tile_h, tile_w)
+    schedule = (tiles_x, num_tiles, tile_h, tile_w)
+    if FUSED:
+        face_table, starts, counts, block_ids, dropped = pack(
+            vertices, vertex_colors, faces, height, width, tile_h, tile_w,
+            chunk)
+        sweep = (resident_sweep if takes_resident(face_table, batch)
+                 else raster_sweep)
+        state = sweep(face_table, starts, counts, block_ids, channels,
+                      height, width, *schedule)
+    else:
+        face_table, slot_tile, slot_block, slot_dma, dropped = pack_slots(
+            vertices, vertex_colors, faces, height, width, tile_h, tile_w,
+            chunk)
+        state = slot_sweep(face_table, slot_tile, slot_block, slot_dma,
+                           batch, channels, height, width, *schedule)
     state = state.reshape(batch, num_tiles, channels + 9, tile_h * tile_w)
     pixels, aux = forward_dense.finalize(state, background, height, width,
                                          tiles_y, tiles_x,

@@ -12,10 +12,21 @@ the backward (PyTorch port of dirt_tpu/ops/grad_blocks.py).
     one deterministic row per face -- no atomics;
   * grad_dense.scatter_face_grads sums the face rows into vertex rows.
 
+With FUSED off (DIRT_TPU_TORCH_GRAD_BLOCKS_FUSED=0, read at import) the
+transposed hits are laid out as the slot schedule instead
+(forward_blocks.build_slots) and slot_grad_reduce (kernel K6 on CUDA)
+walks each block's slots in K3's order, so its rows equal K3's bit for
+bit; a block whose slots the static budget cut keeps zero rows.  The
+Morton sort follows forward_blocks.SPATIAL (off: table rows are faces in
+order), the half-plane cull forward_blocks.EDGE_CULL.
+
 Tile shape and block size are parameters; the defaults are this port's GPU
-shape (16x16-pixel tiles, 32-face blocks with one thread per face), and the
-tests use the JAX package's (8x128 tiles, 128-face blocks) to compare.
+shape (16x16-pixel tiles, 32-face blocks with one thread per face) on both
+schedules, and the tests use the JAX package's (8x128 tiles fused, 16x128
+on slots, 128-face blocks) to compare.
 """
+
+import os
 
 import torch
 
@@ -26,6 +37,7 @@ TILE_H = 16
 TILE_W = 16
 CHUNK = 32
 _BBOX = (0, 1, 2, 3)
+FUSED = os.environ.get("DIRT_TPU_TORCH_GRAD_BLOCKS_FUSED", "1") != "0"
 
 GRAD_REDUCE = _cuda.Kernel(
     "grad_reduce", "dirt_grad_reduce",
@@ -60,6 +72,14 @@ def grad_reduce_plain(face_table, planes, starts, counts, tile_ids, channels,
     return acc
 
 
+def _layout_args(parts, channels):
+    """The plane indices grad_math.cuh's GradLayout takes (-1: absent)."""
+    _, L = grad_dense.plane_layout(parts, channels)
+    return [L.get(name, -1) for name in (
+        "ax", "ay", "px", "py", "bary_d", "face_d", "bary_pre", "face_pre",
+        "grad")]
+
+
 def grad_reduce(face_table, planes, starts, counts, tile_ids, channels,
                 parts):
     """K3 wrapper: grad_reduce_plain's rows, by the CUDA kernel for CUDA
@@ -77,10 +97,6 @@ def grad_reduce(face_table, planes, starts, counts, tile_ids, channels,
         raise ValueError(f"grad_reduce runs one thread per face: a {chunk}-"
                          "face block exceeds 1024 threads")
     d_out = grad_dense.d_out_for(parts, channels)
-    _, L = grad_dense.plane_layout(parts, channels)
-    layout = [L.get(name, -1) for name in (
-        "ax", "ay", "px", "py", "bary_d", "face_d", "bary_pre", "face_pre",
-        "grad")]
     out = torch.empty(runs, chunk, d_out, device=face_table.device)
     GRAD_REDUCE(
         _cuda.check("face_table", face_table, torch.float32),
@@ -90,29 +106,103 @@ def grad_reduce(face_table, planes, starts, counts, tile_ids, channels,
         _cuda.check("tile_ids", tile_ids, torch.int32),
         _cuda.check("out", out, torch.float32),
         runs, chunk, width_d, n_planes, pix, d_out, channels,
-        int(parts in ("all", "position")), *layout, _cuda.stream())
+        int(parts in ("all", "position")), *_layout_args(parts, channels),
+        _cuda.stream())
     return out
 
 
-def pack(vertices, faces, height, width, tile_h, tile_w, chunk):
-    """The gradient schedule for a batch: (face_table [B*NB, chunk, _DF],
-    starts [B*NB], counts [B*NB], tile_ids [B*S], row_face [B, NB*chunk]),
-    CSR ids folded over the batch; row_face maps table rows to faces."""
+# --------------------------------------------------------------------------
+# K6: the reductions on the slot schedule
+# --------------------------------------------------------------------------
+
+SLOT_GRAD_REDUCE = _cuda.Kernel(
+    "slot_grad_reduce", "dirt_slot_grad_reduce",
+    [_cuda.ptr] * 6 + [_cuda.i32] * 18 + [_cuda.ptr],
+    replaces="dirt_tpu/ops/grad_blocks.py:120", source="slot_grad.cu")
+
+
+def slot_grad_reduce_plain(face_table, planes, slot_run, slot_item, slot_dma,
+                           channels, parts):
+    """Per-face sums [B*NB, chunk, d_out] of the slot schedule: face block
+    r adds grad_dense._chunk_sums over the tiles of its live slots
+    (slot_run == r, slot_item >= 0) in slot order; a block without one
+    keeps zeros."""
+    starts, counts, tile_ids = forward_blocks.slot_runs(
+        slot_run, slot_item, slot_dma, face_table.shape[0])
+    return grad_reduce_plain(face_table, planes, starts, counts, tile_ids,
+                             channels, parts)
+
+
+def slot_grad_reduce(face_table, planes, slot_run, slot_item, slot_dma,
+                     channels, parts):
+    """K6 wrapper: slot_grad_reduce_plain's rows, by the CUDA kernel for
+    CUDA tensors and by the plain version for CPU tensors.
+
+    face_table [B*NB, chunk, _DF] f32; planes [B*T, NP, PIX] f32 in
+    plane_layout(parts, channels) order; slot_run [B*S] (batch-folded
+    block, non-decreasing), slot_item [B*S] (per-image tile, -1 for no-op
+    slots) and slot_dma [B*S] (batch-folded tile) int32."""
+    if not _cuda.on_cuda(face_table, planes, slot_run, slot_item, slot_dma):
+        return slot_grad_reduce_plain(face_table, planes, slot_run,
+                                      slot_item, slot_dma, channels, parts)
+    runs, chunk, width_d = face_table.shape
+    slots = slot_run.shape[0]
+    n_planes, pix = planes.shape[1], planes.shape[2]
+    if chunk > 1024:
+        raise ValueError(f"slot_grad_reduce runs one thread per face: a "
+                         f"{chunk}-face block exceeds 1024 threads")
+    d_out = grad_dense.d_out_for(parts, channels)
+    out = torch.empty(runs, chunk, d_out, device=face_table.device)
+    SLOT_GRAD_REDUCE(
+        _cuda.check("face_table", face_table, torch.float32),
+        _cuda.check("planes", planes, torch.float32),
+        _cuda.check("slot_run", slot_run, torch.int32, (slots,)),
+        _cuda.check("slot_item", slot_item, torch.int32, (slots,)),
+        _cuda.check("slot_dma", slot_dma, torch.int32, (slots,)),
+        _cuda.check("out", out, torch.float32),
+        runs, slots, chunk, width_d, n_planes, pix, d_out, channels,
+        int(parts in ("all", "position")), *_layout_args(parts, channels),
+        _cuda.stream())
+    return out
+
+
+# --------------------------------------------------------------------------
+# Schedules
+# --------------------------------------------------------------------------
+
+def _table_and_hits(vertices, faces, height, width, tile_h, tile_w, chunk):
+    """The gradient face table [B, NB*chunk, _DF] (Morton-sorted when
+    forward_blocks.SPATIAL), its [B, T, NB] block hits and row_face [B,
+    NB*chunk], the face of each table row."""
     batch, num_faces = faces.shape[:2]
     num_blocks = _cdiv(num_faces, chunk)
     tiles_y, tiles_x = _cdiv(height, tile_h), _cdiv(width, tile_w)
-    num_tiles = tiles_y * tiles_x
-    num_slots = forward_blocks.slots_per_image(num_blocks, num_tiles)
-
     face_data = grad_tables._grad_face_table(
         vertices, faces, height, width, num_blocks * chunk - num_faces)
-    order = forward_blocks.spatial_order(face_data, _BBOX, tile_h, tile_w)
-    face_data = torch.take_along_dim(face_data, order[..., None].long(),
-                                     dim=1).contiguous()
+    if forward_blocks.SPATIAL:
+        order = forward_blocks.spatial_order(face_data, _BBOX, tile_h,
+                                             tile_w)
+        face_data = torch.take_along_dim(face_data, order[..., None].long(),
+                                         dim=1).contiguous()
+    else:
+        order = torch.arange(num_blocks * chunk, dtype=torch.int32,
+                             device=faces.device).expand(batch, -1)
     # dilate=1: the gradient support is coverage dilated one pixel.
     hit = forward_blocks.hit_matrix(
         face_data, _BBOX, num_blocks, chunk, tiles_y, tiles_x, tile_h,
         tile_w, edge_cols=12, height=height, width=width, dilate=1)
+    return face_data, hit, order
+
+
+def pack(vertices, faces, height, width, tile_h, tile_w, chunk):
+    """The fused gradient schedule for a batch: (face_table [B*NB, chunk,
+    _DF], starts [B*NB], counts [B*NB], tile_ids [B*S], row_face [B,
+    NB*chunk]), CSR ids folded over the batch; row_face maps table rows to
+    faces."""
+    face_data, hit, order = _table_and_hits(vertices, faces, height, width,
+                                            tile_h, tile_w, chunk)
+    batch, num_tiles, num_blocks = hit.shape
+    num_slots = forward_blocks.slots_per_image(num_blocks, num_tiles)
     # Transposed CSR: runs are blocks, items are tiles.  The dropped count
     # is the forward's to report (its schedule is a near-subset of this).
     starts, counts, tile_ids, _ = forward_blocks.build_runs(
@@ -125,10 +215,30 @@ def pack(vertices, faces, height, width, tile_h, tile_w, chunk):
             order)
 
 
+def pack_slots(vertices, faces, height, width, tile_h, tile_w, chunk):
+    """The slot gradient schedule for a batch: (face_table [B*NB, chunk,
+    _DF], slot_run [B*S], slot_item [B*S], slot_dma [B*S], row_face [B,
+    NB*chunk]); slot_run and slot_dma are folded over the batch,
+    slot_item stays per image (dirt_tpu's layout)."""
+    face_data, hit, order = _table_and_hits(vertices, faces, height, width,
+                                            tile_h, tile_w, chunk)
+    batch, num_tiles, num_blocks = hit.shape
+    num_slots = forward_blocks.slots_per_image(num_blocks, num_tiles)
+    slot_run, slot_item, slot_dma, _ = forward_blocks.build_slots(
+        hit.transpose(1, 2), num_slots)
+    boff = torch.arange(batch, dtype=torch.int32, device=faces.device)[:, None]
+    return (face_data.reshape(batch * num_blocks, chunk, grad_tables._DF),
+            (slot_run + num_blocks * boff).reshape(-1),
+            slot_item.reshape(-1),
+            (slot_dma + num_tiles * boff).reshape(-1),
+            order)
+
+
 def rasterise_grad_batch(vertices, faces, pixels, grad_pixels, aux,
                          parts="all", color_cotangent=None,
                          tile_h=TILE_H, tile_w=TILE_W, chunk=CHUNK):
-    """Block-binned face-major gradient assembly; the contract of
+    """Block-binned face-major gradient assembly on the CSR runs (K3) or,
+    with FUSED off, the slot schedule (K6); the contract of
     backward.rasterise_grad_batch (all arguments [B, ...]), including
     `parts` and the fused-deferred `color_cotangent`."""
     batch, height, width, _ = pixels.shape
@@ -144,10 +254,16 @@ def rasterise_grad_batch(vertices, faces, pixels, grad_pixels, aux,
     planes, grad_background, dilated = prepass_fused.gradient_planes(
         pixels, grad_pixels, aux, parts, color_cotangent, tile_h, tile_w)
 
-    face_table, starts, counts, tile_ids, row_face = pack(
-        vertices, faces, height, width, tile_h, tile_w, chunk)
-    face_grads = grad_reduce(face_table, planes, starts, counts, tile_ids,
-                             channels, parts)
+    if FUSED:
+        face_table, starts, counts, tile_ids, row_face = pack(
+            vertices, faces, height, width, tile_h, tile_w, chunk)
+        face_grads = grad_reduce(face_table, planes, starts, counts,
+                                 tile_ids, channels, parts)
+    else:
+        face_table, slot_run, slot_item, slot_dma, row_face = pack_slots(
+            vertices, faces, height, width, tile_h, tile_w, chunk)
+        face_grads = slot_grad_reduce(face_table, planes, slot_run,
+                                      slot_item, slot_dma, channels, parts)
 
     # Rows map 1:1 to faces in table order; padded tail rows reduce to
     # zeros and scatter harmlessly into vertex 0.

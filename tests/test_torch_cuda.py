@@ -5,13 +5,17 @@ elsewhere.  On the card, run them without the JAX test configuration:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
-The checks are chip_smoke.py's, at small shapes: the hit plane, both
-sweeps' states, the fused sweep-and-shade outputs and the plane stack
-(also with the diagonal dilation) bitwise, the three reductions' rows
-within 1e-5 (normalised); the blocks, dense and pallas paths against the
-native oracle, each other and the plain gradient, the mxu gradient
-against the plain one, and the deferred path on both backends against
-the two-call form, with every kernel of each path launched.
+The checks are chip_smoke.py's, at small shapes: the hit plane, the
+sweeps' states (the slot sweep K5b's and the resident sweep K5's also
+equal to K1's), the fused sweep-and-shade outputs and the plane stack
+(also with the diagonal dilation) bitwise, the reductions' rows within
+1e-5 (normalised; the slot reduction K6's equal to K3's); the blocks,
+dense and pallas paths against the native oracle, each other and the
+plain gradient, the mxu gradient against the plain one, the deferred path
+on both backends against the two-call form, the slot and resident
+schedules against the blocks path, a truncating slot budget, and K11
+against its plain version and the repro's numpy reference, with every
+kernel of each path launched.
 """
 
 import pathlib
@@ -45,6 +49,7 @@ def test_kernels_match_plain(device, scene):
     assert errors["hit_plane"] == errors["raster_sweep"] == 0.0
     assert errors["dense_sweep"] == errors["grad_prepass"] == 0.0
     assert errors["pallas_raster"] == 0.0
+    assert errors["slot_sweep"] == errors["resident_sweep"] == 0.0
 
 
 @pytest.mark.parametrize("backend", ["blocks", "dense", "pallas"])
@@ -230,3 +235,76 @@ def test_diagonal_dilation_kernel(device):
         want, want_dilated = prepass_fused.plane_stack_plain(px, gp, aux, 16,
                                                              16, 16)
     assert torch.equal(planes, want) and torch.equal(dilated, want_dilated)
+
+
+def test_slots_path(device):
+    scene = chip_smoke.bench_scene(2, 64, 16, device)
+    launches = chip_smoke.check_slots_path(scene,
+                                           chip_smoke.deferred_scene(scene))
+    assert sorted(launches) == sorted(chip_smoke.PATH_KERNELS["slots"])
+    assert all(n > 0 for n in launches.values())
+
+
+def test_resident_path(device):
+    # 2048 faces: a 294,912-byte table, over a block's shared memory.
+    launches = chip_smoke.check_resident_path(
+        chip_smoke.bench_scene(2, 64, 16, device),
+        chip_smoke.bench_scene(1, 64, 256, device))
+    assert sorted(launches) == sorted(chip_smoke.PATH_KERNELS["resident"])
+    assert all(n > 0 for n in launches.values())
+
+
+def test_truncated_slot_budget(device):
+    chip_smoke.check_truncated("crossing", chip_smoke.crossing_scene(
+        device, size=48, num_faces=60))
+
+
+def test_scalar_accum(device):
+    launches, _, err, _, _ = chip_smoke.check_repro(device)
+    assert launches == {"scalar_accum": 2}
+    assert err <= 1e-4
+
+
+@pytest.mark.parametrize("channels", [1, 4])
+def test_slot_and_resident_sweeps_equal_k1(device, channels):
+    from dirt_tpu_torch.ops import forward_blocks
+    bg, v, c, f, _ = _soup(device, channels, size=37)
+    h, w = bg.shape[1:3]
+    tiles_x, num_tiles = -(-w // 16), -(-h // 16) * -(-w // 16)
+    table, starts, counts, ids, _ = forward_blocks.pack(v, c, f, h, w, 16,
+                                                        16, 32)
+    args = (table, starts, counts, ids, channels, h, w, tiles_x, num_tiles,
+            16, 16)
+    k1 = forward_blocks.raster_sweep(*args)
+    assert torch.equal(forward_blocks.resident_sweep(*args), k1)
+    assert torch.equal(forward_blocks.resident_sweep_plain(*args), k1)
+    slots = forward_blocks.pack_slots(v, c, f, h, w, 16, 16, 32)
+    slot_args = (*slots[:4], 2, channels, h, w, tiles_x, num_tiles, 16, 16)
+    assert torch.equal(forward_blocks.slot_sweep(*slot_args), k1)
+    assert torch.equal(forward_blocks.slot_sweep_plain(*slot_args), k1)
+
+
+@pytest.mark.parametrize("parts,cot_channels", [
+    ("all", 5), ("position", 3), ("color", 3)])
+def test_slot_grad_reduce_equals_k3(device, parts, cot_channels):
+    from dirt_tpu_torch.ops import dispatch, grad_blocks, prepass_fused
+    bg, v, c, f, gp = _soup(device, 3)
+    px, aux = dispatch.forward_batch(bg, v, c, f, "blocks")
+    cot = (torch.randn(*gp.shape[:3], cot_channels, device=device)
+           if parts == "all" else None)
+    planes, _, _ = prepass_fused.gradient_planes(px, gp, aux, parts, cot, 16,
+                                                 16)
+    h, w = bg.shape[1:3]
+    table, starts, counts, tile_ids, _ = grad_blocks.pack(v, f, h, w, 16,
+                                                          16, 32)
+    k3 = grad_blocks.grad_reduce(table, planes, starts, counts, tile_ids,
+                                 cot_channels, parts)
+    _, slot_run, slot_item, slot_dma, _ = grad_blocks.pack_slots(
+        v, f, h, w, 16, 16, 32)
+    args = (table, planes, slot_run, slot_item, slot_dma, cot_channels,
+            parts)
+    rows = grad_blocks.slot_grad_reduce(*args)
+    assert torch.equal(rows, k3)
+    want = grad_blocks.slot_grad_reduce_plain(*args)
+    scale = max(float(want.abs().max()), 1.0)
+    assert float((rows - want).abs().max()) / scale <= 1e-5

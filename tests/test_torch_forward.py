@@ -27,6 +27,19 @@ from dirt_tpu_torch.ops import (dispatch, forward_blocks, forward_pallas,
                                 grad_tables)
 from dirt_tpu_torch.utils import convert, meshes, oracle
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch intra-op thread for this file: the suite runs files in
+    parallel processes, and a thread pool per core in each of them
+    oversubscribes the cores (torch's small CPU ops then slow down many
+    times over)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 JAX_TILE = dict(tile_h=4, tile_w=128, chunk=64)
 
 

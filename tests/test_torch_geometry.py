@@ -19,6 +19,18 @@ from dirt_tpu_torch.ops import geometry
 from dirt_tpu_torch.utils import meshes
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch intra-op thread for this file: the suite runs files in
+    parallel processes, and a thread pool per core in each of them
+    oversubscribes the cores (torch's small CPU ops then slow down many
+    times over)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 def _soup(seed, batch=2, nv=40, nf=64, crossing=False):
     rng = np.random.RandomState(seed)
     v = rng.randn(batch, nv, 4).astype(np.float32)

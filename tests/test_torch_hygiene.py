@@ -1,7 +1,8 @@
 """Structural checks of the PyTorch port that need no GPU.
 
 * `import dirt_tpu_torch` must not import jax (the port runs where jax is
-  not installed).
+  not installed), and no module of the port imports jax, dirt_tpu or the
+  repository's repro/ scripts.
 * chip_smoke.py must fail, printing no result, where no CUDA device is
   available, and when it is run without the rest of the repository; the
   segment sum it times as the reductions' library form computes their
@@ -41,6 +42,7 @@ def test_import_leaves_jax_out():
             "dirt_tpu_torch.ops.forward_dense, dirt_tpu_torch.ops.grad_dense, "
             "dirt_tpu_torch.ops.forward_pallas, dirt_tpu_torch.ops.grad_mxu, "
             "dirt_tpu_torch.ops.dispatch, dirt_tpu_torch.devices, "
+            "dirt_tpu_torch.repro.scalar_accum, "
             "dirt_tpu_torch.utils.convert, dirt_tpu_torch.utils.oracle; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
             "if m.startswith('jax'))")
@@ -58,7 +60,8 @@ def test_no_source_file_imports_jax():
             elif isinstance(node, ast.ImportFrom):
                 names = [node.module or ""]
             for name in names:
-                assert not name.split(".")[0] in ("jax", "dirt_tpu"), (
+                assert not name.split(".")[0] in ("jax", "dirt_tpu",
+                                                  "repro"), (
                     f"{path.relative_to(REPO)} imports {name}")
 
 
@@ -155,12 +158,15 @@ def test_kernels_name_what_they_replace():
     from dirt_tpu_torch.ops import (_cuda, forward_blocks, forward_dense,
                                     forward_pallas, grad_blocks, grad_dense,
                                     grad_mxu, prepass_fused)
+    from dirt_tpu_torch.repro import scalar_accum
     del forward_blocks, forward_dense, forward_pallas, grad_blocks
-    del grad_dense, grad_mxu, prepass_fused
+    del grad_dense, grad_mxu, prepass_fused, scalar_accum
     assert sorted(_cuda.KERNELS) == ["dense_grad_reduce", "dense_sweep",
                                      "grad_prepass", "grad_reduce",
                                      "hit_plane", "mxu_grad",
-                                     "pallas_raster", "raster_sweep"]
+                                     "pallas_raster", "raster_sweep",
+                                     "resident_sweep", "scalar_accum",
+                                     "slot_grad_reduce", "slot_sweep"]
     assert sorted(k.source for k in _cuda.KERNELS.values()) == sorted(
         _cuda.SOURCES)
     for name, kernel in _cuda.KERNELS.items():

@@ -29,6 +29,19 @@ from dirt_tpu_torch.ops import (backward, dispatch, grad_mxu,
 from dirt_tpu_torch.ops.reference import RasterAux
 from dirt_tpu_torch.utils import meshes
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch intra-op thread for this file: the suite runs files in
+    parallel processes, and a thread pool per core in each of them
+    oversubscribes the cores (torch's small CPU ops then slow down many
+    times over)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 TOL = 3e-6
 
 

@@ -24,6 +24,19 @@ import dirt_tpu_torch
 from dirt_tpu_torch.ops import dispatch, forward_dense, forward_pallas
 from dirt_tpu_torch.utils import convert
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch intra-op thread for this file: the suite runs files in
+    parallel processes, and a thread pool per core in each of them
+    oversubscribes the cores (torch's small CPU ops then slow down many
+    times over)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 TOL = 3e-6
 AUX_FIELDS = ("face_index", "indices", "barycentric", "clip_w", "dropped")
 
