@@ -25,7 +25,11 @@ failure:
      order differs) and K6's rows == K3's; on the camera-crossing scene a
      truncating slot budget (DIRT_TPU_TORCH_SLOTS_PER_IMAGE), whose
      dropped count must be the one the fused runs imply and whose cut
-     tiles must be background (cut face blocks: zero rows);
+     tiles must be background (cut face blocks: zero rows); on the bench
+     inputs K3 and K6 each give equal rows in two calls, and on runs of
+     0, 1, 37 and more visits than a block's shared visit list K6 == K3
+     bit for bit, both within 1e-5 of their plain versions, the empty
+     run's rows zero;
   4. paths, each with every launch counter reset just before and read just
      after, failing if a kernel of the path was not launched:
      a. blocks (the default): rasterise_batch forward + backward; image 0
@@ -62,20 +66,25 @@ failure:
         and within the repro's 1e-3 of its numpy reference;
      Every kernel call a path makes (the deferred path's two-call form
      included) is also recorded and held against its plain version on the
-     same inputs, bitwise or within 1e-5 as above;
+     same inputs, bitwise or within 1e-5 as above; then one line gives the
+     bench's visits per run and the launch shape (pixel lanes, ring
+     depth, colour group) of each K3 and K6 call the paths made;
   5. timing (CUDA events, median of 25): each path's step, with its device
-     time per step, busy share and largest device items from
-     torch.profiler; each kernel against its plain version, its bound
-     and, for the reductions, their library form (K3, K6, K9: the segment
-     sum, per-pixel rows plus torch.index_add; K10: the masks built from
-     the same ids and one float32 batched matmul, TF32 off; K11: its masks
-     times its values, one float32 bmm);
+     time per step, busy share, largest device items and K3's and K6's
+     device time from torch.profiler; each kernel against its plain
+     version, its bound (for K3, K6 and K9 the planes of the tiles their
+     runs visit, each once, with the bound from the whole image's planes
+     beside it) and, for the reductions, their library form (K3,
+     K6, K9: the segment sum, per-pixel rows plus torch.index_add; K10:
+     the masks built from the same ids and one float32 batched matmul,
+     TF32 off; K11: its masks times its values, one float32 bmm);
   6. the kernels' JSON line, the card's name and power limit, and last the
      result line {"ok": true, "device": {...}}.
 """
 
 import contextlib
 import importlib
+import inspect
 import json
 import os
 import statistics
@@ -271,6 +280,26 @@ def masked_matmul(face_ids, ids, values, chunk):
     return torch.matmul(masks, values[:, :, None].transpose(-1, -2))
 
 
+def csr_tiles(starts, counts, tile_ids):
+    """The tile ids the CSR runs visit: tile_ids[starts[r] : starts[r] +
+    counts[r]] for each run r, in order."""
+    counts = counts.long()
+    arange = lambda n: torch.arange(n, device=counts.device)
+    run = torch.repeat_interleave(arange(counts.numel()), counts)
+    first = torch.cumsum(counts, 0) - counts
+    return tile_ids[starts.long()[run] + arange(run.numel()) - first[run]]
+
+
+def tile_pixels(tiles, height, width, tile_h, tile_w):
+    """The image's pixels in the distinct tiles of `tiles` (batch-folded
+    ids of tile_h x tile_w tiles, row-major in each image)."""
+    tiles_x = _cdiv(width, tile_w)
+    t = torch.unique(tiles).long() % (_cdiv(height, tile_h) * tiles_x)
+    rows = (height - t // tiles_x * tile_h).clamp(max=tile_h)
+    cols = (width - t % tiles_x * tile_w).clamp(max=tile_w)
+    return int((rows * cols).sum())
+
+
 def repro_reference(planes, ids, counts, chunk):
     """repro/mosaic_scalar_smem_accum.py's numpy `reference`, row by row,
     with the rows at or past a tile's count left zero (the kernel's loop
@@ -389,9 +418,23 @@ def kernel_inputs(scene):
     n_pos = int((planes[:, 7] >= 0).sum())
     n_col = int((aux.face_index >= 0).sum())
     matches = n_pos * OPS_POSITION_HIT + n_col * 6 * channels
-    # The planes each reduction needs (the stack's zero pad plane is the
-    # kernels' layout, not the function's input).
+    # The planes of the image (the stack's zero pad plane is the kernels'
+    # layout, not the function's input), which K2 writes.  A reduction
+    # needs the planes of the tiles its runs visit, each tile once; the
+    # bound with the whole image's planes, the looser figure of older
+    # records, is printed beside its bound.
     plane_bytes = batch * height * width * n_planes * 4
+    block_tiles = (height, width, gh, gw)
+    dense_tiles = (height, width, dgh, dgw)
+    reduce_planes = {name: tile_pixels(tiles, *shape) * n_planes * 4
+                     for name, tiles, shape in (
+                         ("grad_reduce",
+                          csr_tiles(gstarts, gcounts, tile_ids), block_tiles),
+                         ("slot_grad_reduce", gslot_dma[slot_item >= 0],
+                          block_tiles),
+                         ("dense_grad_reduce",
+                          torch.nonzero(dgcounts.reshape(-1) > 0)[:, 0],
+                          dense_tiles))}
     flat_planes = grad_dense.prepass_and_planes(pixels, weights, aux,
                                                 "all")[0]
     library = lambda: segment_sum(flat_planes, clip, faces, channels)
@@ -422,17 +465,20 @@ def kernel_inputs(scene):
                          + plane_bytes + batch * height * width,
                          batch * height * width
                          * (OPS_PREPASS_BASE + 22 * channels)),
-        "grad_reduce": (_nbytes(gtable, gstarts, gcounts) + plane_bytes
+        "grad_reduce": (_nbytes(gtable, gstarts, gcounts)
+                        + reduce_planes["grad_reduce"]
                         + int(gcounts.sum()) * 4
                         + gtable.shape[0] * gchunk * d_out * 4,
                         int(gcounts.sum()) * gchunk * gh * gw
                         * OPS_PIXEL_SCAN + matches),
         "slot_grad_reduce": (_nbytes(gtable, slot_run, slot_item,
-                                     gslot_dma) + plane_bytes
+                                     gslot_dma)
+                             + reduce_planes["slot_grad_reduce"]
                              + gtable.shape[0] * gchunk * d_out * 4,
                              int((slot_item >= 0).sum()) * gchunk * gh * gw
                              * OPS_PIXEL_SCAN + matches),
-        "dense_grad_reduce": (_nbytes(dgtable, dgcounts) + plane_bytes
+        "dense_grad_reduce": (_nbytes(dgtable, dgcounts)
+                              + reduce_planes["dense_grad_reduce"]
                               + live_slots * 4
                               + dgface_ids.numel() * d_out * 4,
                               live_slots * dgh * dgw * OPS_PIXEL_SCAN
@@ -488,8 +534,11 @@ def kernel_inputs(scene):
         tile_h=tile_h, tile_w=tile_w)[0]
     prepass = lambda: (prepass_fused.plane_stack(*prepass_args),
                        prepass_fused.plane_stack_plain(*prepass_args))
-    return calls, dict(work=work, libraries=libraries, channels=channels,
-                       finalize=finalize, prepass=prepass, sweep_tiles={
+    all_planes = {name: (work[name][0] - nbytes + plane_bytes, work[name][1])
+                  for name, nbytes in reduce_planes.items()}
+    return calls, dict(work=work, all_planes=all_planes, libraries=libraries,
+                       channels=channels, finalize=finalize, prepass=prepass,
+                       reduce_args=reduce_args, visits=gcounts, sweep_tiles={
                            "raster_sweep": (th, tw),
                            "slot_sweep": (th, tw),
                            "resident_sweep": (th, tw),
@@ -594,6 +643,75 @@ def compare_kernels(tag, scene):
           f"dense_grad_reduce rel {rel['dense_grad_reduce']:.2e}, K10 "
           f"mxu_grad rel {rel['mxu_grad']:.2e} OK")
     return errors, calls, info
+
+
+def edge_runs(reduce_args):
+    """K3's and K6's inputs for four runs on the first four face blocks of
+    `reduce_args` (grad_reduce's arguments): 0, 1, VISIT_LIST + 300 and
+    37 visits over tiles of every image (ids 7 apart).  Returns (the CSR
+    arguments, the slot arguments); the slot form gives every run a
+    leading no-op slot and one after every fifth visit."""
+    from dirt_tpu_torch.ops import grad_blocks as gb
+    table, planes, _, _, _, channels, parts = reduce_args
+    lengths = (0, 1, gb.VISIT_LIST + 300, 37)
+    num_tiles = planes.shape[0]
+    tile_ids, slot_run, slot_item, slot_dma = [], [], [], []
+    for run, n in enumerate(lengths):
+        slot_run.append(run)
+        slot_item.append(-1)
+        slot_dma.append(0)
+        for i in range(n):
+            tile = (7 * i + 3 * run) % num_tiles
+            tile_ids.append(tile)
+            slot_run.append(run)
+            slot_item.append(tile)
+            slot_dma.append(tile)
+            if i % 5 == 4:
+                slot_run.append(run)
+                slot_item.append(-1)
+                slot_dma.append(0)
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=planes.device)
+    starts = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+    runs = table[:len(lengths)].contiguous()
+    return ((runs, planes, i32(starts.tolist()), i32(lengths), i32(tile_ids),
+             channels, parts),
+            (runs, planes, i32(slot_run), i32(slot_item), i32(slot_dma),
+             channels, parts))
+
+
+def check_reduce_walk(tag, calls, info):
+    """K3 and K6, the face-major run walk: each gives equal rows in two
+    calls on `tag`'s inputs; on edge_runs K6 == K3 bit for bit, both
+    within ROW_TOL of their plain versions, the empty run's rows zero and
+    the long run's not."""
+    from dirt_tpu_torch.ops import grad_blocks as gb
+    for name in ("grad_reduce", "slot_grad_reduce"):
+        first, second = calls[name][0](), calls[name][0]()
+        torch.cuda.synchronize()
+        if not torch.equal(first, second):
+            fail(f"{tag}: {name} rows differ between two calls (max "
+                 f"{_max_abs(first, second)})")
+    csr, slot = edge_runs(info["reduce_args"])
+    k3, k6 = gb.grad_reduce(*csr), gb.slot_grad_reduce(*slot)
+    torch.cuda.synchronize()
+    if not torch.equal(k6, k3):
+        fail(f"{tag}: on the edge runs slot_grad_reduce differs from "
+             f"grad_reduce (max {_max_abs(k6, k3)})")
+    want = gb.grad_reduce_plain(*csr)
+    rel = {}
+    for name, got, plain in (("grad_reduce", k3, want), (
+            "slot_grad_reduce", k6, gb.slot_grad_reduce_plain(*slot))):
+        rel[name] = _max_abs(got, plain) / max(float(plain.abs().max()), 1.)
+        if not rel[name] <= ROW_TOL:
+            fail(f"{tag}: {name} on the edge runs differs from its plain "
+                 f"version by {rel[name]} > {ROW_TOL}")
+    if bool(k3[0].any()) or not bool(k3[2].any()):
+        fail(f"{tag}: edge runs: the empty run's rows are not zero or the "
+             f"long run's are")
+    lengths = csr[3].tolist()
+    phase("kernels", f"{tag}: K3 and K6 each == in two calls; runs of "
+          f"{lengths} visits (list of {gb.VISIT_LIST}): K6 == K3, rel "
+          f"{rel['grad_reduce']:.2e} vs plain, empty run zero OK")
 
 
 def check_truncated(tag, scene):
@@ -746,6 +864,9 @@ WRAPPERS = {
 }
 BITWISE = ("hit_plane", "raster_sweep", "slot_sweep", "resident_sweep",
            "dense_sweep", "grad_prepass", "pallas_raster")
+# The launch shape of every K3 / K6 call the paths make (check_recorded):
+# {(kernel, parts, channels, chunk, pix): grad_blocks.ReduceShape}.
+REDUCE_LAUNCHES = {}
 
 
 def _ops_module(name):
@@ -786,10 +907,19 @@ def check_recorded(tag, path, calls):
     and K10 within ROW_TOL;
     fails if a kernel of `path` has no recorded call.  Returns {kernel:
     [shape of each call's first result]}."""
+    from dirt_tpu_torch.ops import grad_blocks
     checked = {}
     for name, args, kwargs, got in calls:
         module, _, plain = WRAPPERS[name]
-        want = _tensors(getattr(_ops_module(module), plain)(*args, **kwargs))
+        plain = getattr(_ops_module(module), plain)
+        if name in ("grad_reduce", "slot_grad_reduce"):
+            named = inspect.signature(plain).bind(*args, **kwargs).arguments
+            table, planes = named["face_table"], named["planes"]
+            REDUCE_LAUNCHES[(name, named["parts"], named["channels"],
+                             table.shape[1], planes.shape[2])] = (
+                grad_blocks.launch_shape(table, planes, named["channels"],
+                                         named["parts"]))
+        want = _tensors(plain(*args, **kwargs))
         torch.cuda.synchronize()
         for g, w in zip(got, want, strict=True):
             if name in BITWISE:
@@ -1200,8 +1330,9 @@ def time_ms(fn, reps):
 
 def device_profile(fn, reps):
     """torch.profiler's view of fn(), per call over `reps` calls after one
-    warm-up: (device ms, device kernels, {largest device items: ms}); the
-    device ms is None where the profiler records no device time."""
+    warm-up: (device ms, device kernels, {largest device items: ms}, K3's
+    and K6's device ms); the device ms is None where the profiler records
+    no device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1214,14 +1345,16 @@ def device_profile(fn, reps):
               if str(e.device_type).endswith("CUDA")
               and e.self_device_time_total > 0]
     if not device:
-        return None, 0, {}
-    items = {}
+        return None, 0, {}, 0.0
+    items, walk = {}, 0.0
     for e in device:
-        items[e.key[:48]] = (items.get(e.key[:48], 0.0)
-                             + e.self_device_time_total / 1e3 / reps)
+        ms = e.self_device_time_total / 1e3 / reps
+        items[e.key[:48]] = items.get(e.key[:48], 0.0) + ms
+        if "grad_reduce_kernel" in e.key or "slot_grad_kernel" in e.key:
+            walk += ms
     top = dict(sorted(items.items(), key=lambda kv: -kv[1])[:4])
     return (sum(items.values()), sum(e.count for e in device) / reps,
-            {k: round(v, 4) for k, v in top.items()})
+            {k: round(v, 4) for k, v in top.items()}, walk)
 
 
 def bound(nbytes, ops, peak_ops_per_ms=PEAK_OPS_PER_MS):
@@ -1263,6 +1396,7 @@ def main():
     # 3. Kernels vs plain
     scene = bench_scene(16, 256, 64, device)
     errors, calls, info = compare_kernels("bench 16x256^2x512f", scene)
+    check_reduce_walk("bench 16x256^2x512f", calls, info)
     compare_kernels("100x100", bench_scene(4, 100, 64, device))
     crossing = crossing_scene(device)
     compare_kernels("camera-crossing", crossing)
@@ -1290,6 +1424,13 @@ def main():
     for counts in path_launches:
         for name, n in counts.items():
             launches.setdefault(name, n)
+    visits = info["visits"].float()
+    phase("kernels", f"K3/K6 at the bench configuration: visits per run "
+          f"mean {float(visits.mean()):.2f}, max {int(visits.max())} over "
+          f"{visits.numel()} runs; launch shapes (kernel, parts, channels, "
+          f"chunk, pix): (lanes, ring depth, colour group, shared bytes) "
+          + "; ".join(f"{key}: ({s.lanes}, {s.depth}, {s.group}, {s.smem})"
+                      for key, s in REDUCE_LAUNCHES.items()))
 
     # 5. Timing
     paths = {
@@ -1304,7 +1445,7 @@ def main():
     }
     steps = {name: time_ms(run, STEPS) for name, run in paths.items()}
     for name, run in paths.items():
-        device_ms, n_kernels, top = device_profile(run, PROFILE_STEPS)
+        device_ms, n_kernels, top, walk = device_profile(run, PROFILE_STEPS)
         device, busy = "not measured", "not measured"
         if device_ms is not None:
             device = f"{device_ms:.4f} ms/step"
@@ -1312,8 +1453,8 @@ def main():
         phase("profile", f"{name}: device {device} (torch.profiler, "
               f"{PROFILE_STEPS} steps), busy share {busy} of the "
               f"{steps[name]:.4f} ms step, "
-              f"{n_kernels:.0f} device kernels/step, largest {top} on "
-              f"{card_line}")
+              f"{n_kernels:.0f} device kernels/step, largest {top}, K3/K6 "
+              f"{walk:.4f} ms/step on {card_line}")
     kernels = []
     for name, (kernel, plain) in calls.items():
         k = _cuda.KERNELS[name]
@@ -1328,9 +1469,13 @@ def main():
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None if library is None else time_ms(library,
                                                                STEPS)})
+        all_planes = info["all_planes"].get(name)
+        all_planes = ("" if all_planes is None else
+                      f" (with every plane of the image: "
+                      f"{bound(*all_planes)[0]:.4f} ms)")
         phase("timing", f"{name}: {kernels[-1]['ms']:.4f} ms, plain "
               f"{kernels[-1]['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}), library "
+              f"({bound_by}){all_planes}, library "
               f"{kernels[-1]['library_ms']} ms, {launches[name]} launches "
               f"on {card_line}")
     for name, ms in steps.items():

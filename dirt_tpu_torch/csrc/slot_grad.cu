@@ -9,22 +9,31 @@
 // math is grad_dense.chunk_sums.
 //
 // Work: the H100 runs blocks in parallel and in no order, so nothing can
-// ride from one slot to the next.  One thread block owns one (image, face
-// block) run and one thread one face of it.  The block finds its run's
+// ride from one slot to the next.  One thread block of chunk x P threads
+// owns one (image, face block) run.  Two threads find the ends of its
 // slots, a consecutive range of the batch-folded, non-decreasing
-// slot_run, by binary search (slots.cuh), and walks them in order with
-// K3's run walk (grad_math.cuh's reduce_run): slots with tile -1 (a
-// block's mandatory slot without hits, the filler tail) are skipped, every
-// other slot's tile (slot_dma, batch-folded) is staged in shared memory
-// and its pixels are added to the face's sums in registers.  No atomics:
-// each face row has one owner and K3's summation order (colour passes of
-// four, tiles ascending, pixels in order), so the rows equal K3's bit for
-// bit on the same tiles.  A run without a live slot writes zeros, which
-// stand for the aliased zeros.
+// slot_run, by binary search at the same time (slots.cuh); the block then
+// compacts the live slots (slot_item >= 0; the others are a block's
+// mandatory slot without hits and the filler tail) into a visit list in
+// shared memory, keeping their order, their batch-folded tiles
+// (slot_dma) in pieces of at most kVisitList.  From there it is K3's walk
+// (grad_math.cuh's reduce_run): the same list, lanes, ring, colour groups
+// and lane combine, so the rows equal K3's bit for bit on the same tiles.
+// No atomics.  A run without a live slot writes zeros, which stand for the
+// aliased zeros.
 //
-// What bounds it on the H100: as K3, the pixel scan per visit and the
-// staging of each tile's planes (L2-resident), plus one binary search per
-// face block over the slot list.
+// What bounds it on the H100: as K3 (grad_reduce.cu), latency -- the scan
+// of pix / P pixels a visit and the longest run -- far above the bytes
+// bound.  Searching in one thread would chain two ~15-step runs of
+// dependent L2 loads, and reading slot_item, then slot_dma, before each
+// visit's staging two more; here the searches run side by side once, and
+// the per-slot loads are the compaction's coalesced reads, outside the
+// walk.
+//
+// Registers (nvcc -Xptxas -v, sm_90a, CUDA 12.8): 64, 103 and 108 for
+// groups of 4, 8 and 12 in blocks of up to 256 threads, without spills;
+// 64 in blocks of up to 1024 threads, spilling 16 bytes (G = 8) and 68
+// (G = 12) a thread.
 //
 // The summation order differs from the plain version's (torch sums each
 // [chunk, pix] plane with its own reduction tree), so the rows agree with
@@ -37,7 +46,55 @@
 
 namespace {
 
-__global__ void slot_grad_kernel(
+// The run's live slots in [lo, hi), compacted in order, one window of
+// blockDim.x slots at a time while the piece has room for a whole window.
+struct SlotFill {
+  const int* item;
+  const int* dma;
+  int lo;
+  int hi;
+  int* scratch;   // [32] per-warp counts, then offsets; [32] the total
+  int cursor;
+
+  __device__ void reset() { cursor = lo; }
+  __device__ bool done() const { return cursor >= hi; }
+  __device__ int next(int* list) {
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int in_warp = min(32, (int)blockDim.x - warp * 32);
+    const unsigned members = in_warp == 32 ? 0xffffffffu
+                                           : (1u << in_warp) - 1u;
+    int n = 0;
+    while (cursor < hi && n + (int)blockDim.x <= dirt::kVisitList) {
+      const int idx = cursor + threadIdx.x;
+      const bool live = idx < hi && item[idx] >= 0;
+      const int tile = live ? dma[idx] : 0;
+      const unsigned ballot = __ballot_sync(members, live);
+      if (lane == 0) scratch[warp] = __popc(ballot);
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        int total = 0;
+        for (int w = 0; w < ((int)blockDim.x + 31) >> 5; ++w) {
+          const int c = scratch[w];
+          scratch[w] = total;
+          total += c;
+        }
+        scratch[32] = total;
+      }
+      __syncthreads();
+      if (live) {
+        list[n + scratch[warp] + __popc(ballot & ((1u << lane) - 1u))] = tile;
+      }
+      n += scratch[32];
+      cursor += blockDim.x;
+      __syncthreads();
+    }
+    return n;
+  }
+};
+
+template <int G, int kMaxThreads>
+__global__ void __launch_bounds__(kMaxThreads) slot_grad_kernel(
     const float* __restrict__ table,     // [R, chunk, width_d]
     const float* __restrict__ planes,    // [B*T, n_planes, pix]
     const int* __restrict__ slot_run,    // [B*S], batch-folded face block
@@ -45,21 +102,42 @@ __global__ void slot_grad_kernel(
     const int* __restrict__ slot_dma,    // [B*S], batch-folded tile
     float* __restrict__ out,             // [R, chunk, d_out]
     int slots, int chunk, int width_d, int n_planes, int pix, int d_out,
-    int channels, int want_pos, dirt::GradLayout layout) {
-  extern __shared__ float tile[];        // [n_planes, pix]
+    int channels, int want_pos, dirt::GradLayout layout,
+    dirt::RunShape shape) {
+  extern __shared__ __align__(16) float smem[];
+  int* scratch = reinterpret_cast<int*>(smem + shape.region) +
+                 dirt::kVisitList;
   const int run = blockIdx.x;
-  const int f = threadIdx.x;
+  const int f = threadIdx.x % chunk;
+  if (threadIdx.x < 2) {
+    scratch[33 + threadIdx.x] =
+        dirt::lower_bound(slot_run, slots, run + (int)threadIdx.x);
+  }
   const dirt::GradFace face = dirt::load_grad_face(
       table + ((long long)run * chunk + f) * width_d);
-  const int lo = dirt::lower_bound(slot_run, slots, run);
-  const int hi = dirt::lower_bound(slot_run, slots, run + 1);
-  dirt::reduce_run(
-      planes, hi - lo,
-      [&](int i) {
-        return slot_item[lo + i] < 0 ? -1LL : (long long)slot_dma[lo + i];
-      },
-      tile, n_planes, pix, face, layout, want_pos, channels, d_out,
-      out + ((long long)run * chunk + f) * d_out);
+  __syncthreads();
+  SlotFill fill{slot_item, slot_dma, scratch[33], scratch[34], scratch, 0};
+  dirt::reduce_run<G>(fill, planes, (long long)n_planes * pix, pix, chunk,
+                      shape, smem, face, layout, want_pos != 0, channels,
+                      d_out, out + (long long)run * chunk * d_out);
+}
+
+template <int G, int kMaxThreads>
+int launch(const float* table, const float* planes, const int* slot_run,
+           const int* slot_item, const int* slot_dma, float* out, int runs,
+           int slots, int chunk, int width_d, int n_planes, int pix,
+           int d_out, int channels, int want_pos,
+           const dirt::GradLayout& layout, const dirt::RunShape& shape,
+           size_t smem, cudaStream_t stream) {
+  auto kernel = slot_grad_kernel<G, kMaxThreads>;
+  if (smem > 48 * 1024) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+  }
+  kernel<<<runs, chunk * shape.lanes, smem, stream>>>(
+      table, planes, slot_run, slot_item, slot_dma, out, slots, chunk,
+      width_d, n_planes, pix, d_out, channels, want_pos, layout, shape);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -69,18 +147,23 @@ extern "C" int dirt_slot_grad_reduce(
     const int* slot_item, const int* slot_dma, float* out, int runs,
     int slots, int chunk, int width_d, int n_planes, int pix, int d_out,
     int channels, int want_pos, int l_ax, int l_ay, int l_px, int l_py,
-    int l_bd, int l_fd, int l_bp, int l_fp, int l_grad, cudaStream_t stream) {
+    int l_bd, int l_fd, int l_bp, int l_fp, int l_grad, int group, int lanes,
+    int depth, int slot, int region, int staged, int vec16, int smem,
+    cudaStream_t stream) {
   if (runs == 0) return (int)cudaGetLastError();
-  const size_t smem = (size_t)n_planes * pix * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(slot_grad_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-  }
   const dirt::GradLayout layout{l_ax, l_ay, l_px, l_py, l_bd,
                                 l_fd, l_bp, l_fp, l_grad};
-  slot_grad_kernel<<<runs, chunk, smem, stream>>>(
-      table, planes, slot_run, slot_item, slot_dma, out, slots, chunk,
-      width_d, n_planes, pix, d_out, channels, want_pos, layout);
-  return (int)cudaGetLastError();
+  const dirt::RunShape shape{lanes, depth, slot, region, staged, vec16};
+  const bool wide = chunk * lanes > 256;
+#define DIRT_LAUNCH(G, T)                                                   \
+  launch<G, T>(table, planes, slot_run, slot_item, slot_dma, out, runs,     \
+               slots, chunk, width_d, n_planes, pix, d_out, channels,       \
+               want_pos, layout, shape, smem, stream)
+  switch (group) {
+    case 4: return wide ? DIRT_LAUNCH(4, 1024) : DIRT_LAUNCH(4, 256);
+    case 8: return wide ? DIRT_LAUNCH(8, 1024) : DIRT_LAUNCH(8, 256);
+    case 12: return wide ? DIRT_LAUNCH(12, 1024) : DIRT_LAUNCH(12, 256);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef DIRT_LAUNCH
 }

@@ -18,6 +18,7 @@ otherwise counts the launch.
 """
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -116,13 +117,19 @@ class Kernel:
 def shared_memory_optin(device):
     """The shared memory one block of `device` may opt in to, in bytes
     (cudaDevAttrMaxSharedMemoryPerBlockOptin)."""
+    index = torch.device(device).index
+    return _optin(torch.cuda.current_device() if index is None else index)
+
+
+@functools.lru_cache(maxsize=None)
+def _optin(index):
+    """shared_memory_optin of device `index`, queried once: K3 and K6 read
+    it at every launch."""
     fn = load().dirt_shared_memory_optin
     fn.argtypes = [i32, ctypes.POINTER(i32)]
     fn.restype = ctypes.c_int
     out = i32(0)
-    index = torch.device(device).index
-    err = fn(torch.cuda.current_device() if index is None else index,
-             ctypes.byref(out))
+    err = fn(index, ctypes.byref(out))
     if err != 0:
         raise RuntimeError(f"cudaDeviceGetAttribute failed: error {err}")
     return out.value

@@ -21,11 +21,14 @@ Morton sort follows forward_blocks.SPATIAL (off: table rows are faces in
 order), the half-plane cull forward_blocks.EDGE_CULL.
 
 Tile shape and block size are parameters; the defaults are this port's GPU
-shape (16x16-pixel tiles, 32-face blocks with one thread per face) on both
-schedules, and the tests use the JAX package's (8x128 tiles fused, 16x128
-on slots, 128-face blocks) to compare.
+shape (16x16-pixel tiles, 32-face blocks) on both schedules, and the tests
+use the JAX package's (8x128 tiles fused, 16x128 on slots, 128-face
+blocks) to compare.  K3 and K6 share one launch shape, reduce_shape: P
+pixel lanes per face, a ring of staged tiles and a colour group, computed
+from the shapes and the device's opt-in shared memory.
 """
 
+import collections
 import os
 
 import torch
@@ -41,7 +44,7 @@ FUSED = os.environ.get("DIRT_TPU_TORCH_GRAD_BLOCKS_FUSED", "1") != "0"
 
 GRAD_REDUCE = _cuda.Kernel(
     "grad_reduce", "dirt_grad_reduce",
-    [_cuda.ptr] * 6 + [_cuda.i32] * 17 + [_cuda.ptr],
+    [_cuda.ptr] * 6 + [_cuda.i32] * 25 + [_cuda.ptr],
     replaces=("dirt_tpu/ops/grad_blocks.py:147, "
               "dirt_tpu/ops/grad_blocks.py:176"),
     source="grad_reduce.cu")
@@ -80,6 +83,77 @@ def _layout_args(parts, channels):
         "grad")]
 
 
+# --------------------------------------------------------------------------
+# The launch shape of K3 and K6 (grad_math.cuh's reduce_run)
+# --------------------------------------------------------------------------
+
+VISIT_LIST = 1024      # tile ids of the list (grad_math.cuh's kVisitList)
+MAX_LANES = 8          # pixel lanes per face
+GROUPS = (4, 8, 12)    # colour channels a pass can take
+_SCRATCH = 64          # ints after the list (grad_math.cuh's kScratch)
+
+ReduceShape = collections.namedtuple(
+    "ReduceShape", "lanes depth group slot region staged smem")
+
+
+def reduce_shape(chunk, staged, channels, want_col, optin):
+    """The ReduceShape of a K3 or K6 launch on `chunk`-face blocks that
+    stage `staged` floats a visit, under `optin` bytes of shared memory a
+    block:
+      lanes    P, the largest power of two <= min(MAX_LANES, 1024 //
+               chunk): a block has chunk * P <= 1024 threads;
+      group    colour channels a pass: the least of GROUPS that covers
+               `channels`, else the largest (then more than one pass);
+      depth    the ring's slots: 2 where two stacks fit `optin` beside the
+               list, else 1;
+      slot     floats a ring slot takes (`staged` rounded up to 4);
+      region   floats of the ring, which the lane combine reuses for its
+               (P / 2) * chunk * (9 + 3 * group) floats;
+      smem     bytes of dynamic shared memory: region, then the visit
+               list (VISIT_LIST ids, at least the threads) and scratch.
+    Raises where no depth fits."""
+    if chunk > 1024:
+        raise ValueError(f"a {chunk}-face block exceeds 1024 threads (one "
+                         "per face and pixel lane)")
+    lanes = 1 << (min(MAX_LANES, 1024 // chunk).bit_length() - 1)
+    group = (next((g for g in GROUPS if g >= channels), GROUPS[-1])
+             if want_col else GROUPS[0])
+    slot = _cdiv(staged, 4) * 4
+    combine = (lanes // 2) * chunk * (9 + 3 * group)
+    for depth in (2, 1):
+        region = _cdiv(max(depth * slot, combine), 4) * 4
+        smem = 4 * (region + VISIT_LIST + _SCRATCH)
+        if smem <= optin:
+            return ReduceShape(lanes, depth, group, slot, region, staged,
+                               smem)
+    raise ValueError(f"a plane stack of {staged} floats exceeds the "
+                     f"{optin}-byte shared memory of a block")
+
+
+def launch_shape(face_table, planes, channels, parts):
+    """The ReduceShape K3 and K6 launch with on these CUDA inputs: the
+    planes plane_layout(parts, channels) reads are staged."""
+    staged = grad_dense.plane_layout(parts, channels)[0] * planes.shape[2]
+    return reduce_shape(face_table.shape[1], staged, channels,
+                        parts in ("all", "color"),
+                        _cuda.shared_memory_optin(planes.device))
+
+
+def _shape_args(face_table, planes, channels, parts):
+    """launch_shape's arguments of the C entry points: the shape, whether
+    the stacks take 16-byte copies (16-byte aligned, sizes in fours), and
+    the shared memory's bytes."""
+    s = launch_shape(face_table, planes, channels, parts)
+    if s.staged > planes.shape[1] * planes.shape[2]:
+        raise ValueError(f"planes hold {planes.shape[1]} planes, fewer than "
+                         f"the {s.staged // planes.shape[2]} of "
+                         f"plane_layout({parts!r}, {channels})")
+    vec16 = (planes.data_ptr() % 16 == 0 and s.staged % 4 == 0
+             and planes.shape[1] * planes.shape[2] % 4 == 0)
+    return [s.group, s.lanes, s.depth, s.slot, s.region, s.staged,
+            int(vec16), s.smem]
+
+
 def grad_reduce(face_table, planes, starts, counts, tile_ids, channels,
                 parts):
     """K3 wrapper: grad_reduce_plain's rows, by the CUDA kernel for CUDA
@@ -93,9 +167,7 @@ def grad_reduce(face_table, planes, starts, counts, tile_ids, channels,
                                  tile_ids, channels, parts)
     runs, chunk, width_d = face_table.shape
     n_planes, pix = planes.shape[1], planes.shape[2]
-    if chunk > 1024:
-        raise ValueError(f"grad_reduce runs one thread per face: a {chunk}-"
-                         "face block exceeds 1024 threads")
+    shape = _shape_args(face_table, planes, channels, parts)
     d_out = grad_dense.d_out_for(parts, channels)
     out = torch.empty(runs, chunk, d_out, device=face_table.device)
     GRAD_REDUCE(
@@ -107,7 +179,7 @@ def grad_reduce(face_table, planes, starts, counts, tile_ids, channels,
         _cuda.check("out", out, torch.float32),
         runs, chunk, width_d, n_planes, pix, d_out, channels,
         int(parts in ("all", "position")), *_layout_args(parts, channels),
-        _cuda.stream())
+        *shape, _cuda.stream())
     return out
 
 
@@ -117,7 +189,7 @@ def grad_reduce(face_table, planes, starts, counts, tile_ids, channels,
 
 SLOT_GRAD_REDUCE = _cuda.Kernel(
     "slot_grad_reduce", "dirt_slot_grad_reduce",
-    [_cuda.ptr] * 6 + [_cuda.i32] * 18 + [_cuda.ptr],
+    [_cuda.ptr] * 6 + [_cuda.i32] * 26 + [_cuda.ptr],
     replaces="dirt_tpu/ops/grad_blocks.py:120", source="slot_grad.cu")
 
 
@@ -148,9 +220,7 @@ def slot_grad_reduce(face_table, planes, slot_run, slot_item, slot_dma,
     runs, chunk, width_d = face_table.shape
     slots = slot_run.shape[0]
     n_planes, pix = planes.shape[1], planes.shape[2]
-    if chunk > 1024:
-        raise ValueError(f"slot_grad_reduce runs one thread per face: a "
-                         f"{chunk}-face block exceeds 1024 threads")
+    shape = _shape_args(face_table, planes, channels, parts)
     d_out = grad_dense.d_out_for(parts, channels)
     out = torch.empty(runs, chunk, d_out, device=face_table.device)
     SLOT_GRAD_REDUCE(
@@ -162,7 +232,7 @@ def slot_grad_reduce(face_table, planes, slot_run, slot_item, slot_dma,
         _cuda.check("out", out, torch.float32),
         runs, slots, chunk, width_d, n_planes, pix, d_out, channels,
         int(parts in ("all", "position")), *_layout_args(parts, channels),
-        _cuda.stream())
+        *shape, _cuda.stream())
     return out
 
 

@@ -106,36 +106,72 @@ def test_sweep_any_channel_count(device, channels):
     torch.testing.assert_close(px_b, px_r, atol=1e-4, rtol=1e-5)
 
 
-@pytest.mark.parametrize("parts,cot_channels", [
-    ("all", 5), ("position", 3), ("color", 3)])
-def test_grad_reduce_parts_and_wide_cotangent(device, parts, cot_channels):
-    # Colour channels reduce in passes of four: five exercise two passes.
-    from dirt_tpu_torch.ops import (dispatch, grad_blocks, grad_dense,
-                                    prepass_fused)
-    bg, v, c, f, gp = _soup(device, 3)
+def _check_face_major_reductions(device, monkeypatch, parts, channels,
+                                 cotangent, tile=(16, 16), chunk=32,
+                                 truncate=False):
+    """K3 and K6 on a soup: each within 1e-5 (normalised) of its plain
+    version and deterministic (two calls ==); K6 == K3 bit for bit, or,
+    under a truncating slot budget (half the slots the emptier image
+    needs), zero rows for the face blocks it cut.  `channels` colour
+    channels come from the cotangent when `cotangent`, else from the
+    scene; `tile` (pixels (h, w)) and `chunk` (faces a block) set the
+    launch shape, which it returns."""
+    from dirt_tpu_torch.ops import dispatch, grad_blocks, prepass_fused
+    bg, v, c, f, gp = _soup(device, 3 if cotangent else channels,
+                            num_faces=300 if chunk > 32 else 70)
     px, aux = dispatch.forward_batch(bg, v, c, f, "blocks")
-    cot = (torch.randn(*gp.shape[:3], cot_channels, device=device)
-           if parts == "all" else None)
-    channels = cot_channels
-    n = grad_dense.plane_layout(parts, channels)[0]
-    np_dma = -(-n // 8) * 8
-    if parts == "color":
-        planes, _, _ = grad_dense.prepass_and_planes(px, gp, aux, parts)
-        planes = prepass_fused.tile_planes(planes, 16, 16, np_dma)
-    else:
-        planes, _ = prepass_fused.plane_stack(px, gp, aux, 16, 16, np_dma,
-                                              parts=parts,
-                                              color_cotangent=cot)
+    cot = (torch.randn(*gp.shape[:3], channels, device=device)
+           if cotangent else None)
+    planes, _, _ = prepass_fused.gradient_planes(px, gp, aux, parts, cot,
+                                                 *tile)
+    if parts != "color":
         plain, _ = prepass_fused.plane_stack_plain(
-            px, gp, aux, 16, 16, np_dma, parts=parts, color_cotangent=cot)
+            px, gp, aux, *tile, planes.shape[1], parts=parts,
+            color_cotangent=cot)
         assert torch.equal(planes, plain)
-    table, starts, counts, tile_ids, _ = grad_blocks.pack(
-        v, f, bg.shape[1], bg.shape[2], 16, 16, 32)
-    args = (table, planes, starts, counts, tile_ids, channels, parts)
-    rows = grad_blocks.grad_reduce(*args)
-    want = grad_blocks.grad_reduce_plain(*args)
-    scale = max(float(want.abs().max()), 1.0)
-    assert float((rows - want).abs().max()) / scale <= 1e-5
+    h, w = bg.shape[1:3]
+    schedule = (v, f, h, w, *tile, chunk)
+    table, starts, counts, tile_ids, _ = grad_blocks.pack(*schedule)
+    if truncate:
+        need = counts.clamp(min=1).reshape(bg.shape[0], -1).sum(-1)
+        monkeypatch.setenv("DIRT_TPU_TORCH_SLOTS_PER_IMAGE",
+                           str(int(need.min()) // 2))
+    _, slot_run, slot_item, slot_dma, _ = grad_blocks.pack_slots(*schedule)
+    k3_args = (table, planes, starts, counts, tile_ids, channels, parts)
+    k6_args = (table, planes, slot_run, slot_item, slot_dma, channels, parts)
+    rows = {}
+    for name, args in (("grad_reduce", k3_args),
+                       ("slot_grad_reduce", k6_args)):
+        got = getattr(grad_blocks, name)(*args)
+        assert torch.equal(got, getattr(grad_blocks, name)(*args)), name
+        want = getattr(grad_blocks, name + "_plain")(*args)
+        assert float(want.abs().max()) > 0
+        scale = max(float(want.abs().max()), 1.0)
+        assert float((got - want).abs().max()) / scale <= 1e-5, name
+        rows[name] = got
+    if truncate:
+        live = torch.zeros(table.shape[0], dtype=torch.bool, device=device)
+        live[slot_run[slot_item >= 0].long()] = True
+        assert bool(live.any()) and not bool(live.all())
+        assert not bool(rows["slot_grad_reduce"][~live].any())
+    else:
+        assert torch.equal(rows["slot_grad_reduce"], rows["grad_reduce"])
+    shape = grad_blocks.launch_shape(table, planes, channels, parts)
+    assert shape.lanes * chunk <= 1024
+    return shape
+
+
+@pytest.mark.parametrize("parts,channels,cotangent", [
+    ("all", 1, False), ("all", 3, False), ("all", 4, False),
+    ("all", 5, False), ("all", 10, False), ("all", 12, False),
+    ("all", 13, False), ("all", 5, True), ("all", 10, True),
+    ("all", 13, True), ("position", 3, False), ("position", 13, False),
+    ("color", 3, False), ("color", 10, False), ("color", 13, False)])
+def test_grad_reduce_parts_and_wide_cotangent(device, monkeypatch, parts,
+                                              channels, cotangent):
+    # Colour channels reduce in groups of 4, 8 or 12 a pass: 13 take two.
+    _check_face_major_reductions(device, monkeypatch, parts, channels,
+                                 cotangent)
 
 
 @pytest.mark.parametrize("parts,cot_channels", [
@@ -284,27 +320,30 @@ def test_slot_and_resident_sweeps_equal_k1(device, channels):
     assert torch.equal(forward_blocks.slot_sweep_plain(*slot_args), k1)
 
 
-@pytest.mark.parametrize("parts,cot_channels", [
-    ("all", 5), ("position", 3), ("color", 3)])
-def test_slot_grad_reduce_equals_k3(device, parts, cot_channels):
-    from dirt_tpu_torch.ops import dispatch, grad_blocks, prepass_fused
-    bg, v, c, f, gp = _soup(device, 3)
-    px, aux = dispatch.forward_batch(bg, v, c, f, "blocks")
-    cot = (torch.randn(*gp.shape[:3], cot_channels, device=device)
-           if parts == "all" else None)
-    planes, _, _ = prepass_fused.gradient_planes(px, gp, aux, parts, cot, 16,
-                                                 16)
-    h, w = bg.shape[1:3]
-    table, starts, counts, tile_ids, _ = grad_blocks.pack(v, f, h, w, 16,
-                                                          16, 32)
-    k3 = grad_blocks.grad_reduce(table, planes, starts, counts, tile_ids,
-                                 cot_channels, parts)
-    _, slot_run, slot_item, slot_dma, _ = grad_blocks.pack_slots(
-        v, f, h, w, 16, 16, 32)
-    args = (table, planes, slot_run, slot_item, slot_dma, cot_channels,
-            parts)
-    rows = grad_blocks.slot_grad_reduce(*args)
-    assert torch.equal(rows, k3)
-    want = grad_blocks.slot_grad_reduce_plain(*args)
-    scale = max(float(want.abs().max()), 1.0)
-    assert float((rows - want).abs().max()) / scale <= 1e-5
+@pytest.mark.parametrize("tile,chunk", [
+    ((16, 16), 32), ((16, 16), 128), ((8, 128), 32), ((8, 128), 128),
+    ((16, 128), 128), ((5, 7), 32)])
+@pytest.mark.parametrize("parts,channels,cotangent,truncate", [
+    ("all", 3, False, False), ("all", 13, True, False),
+    ("color", 10, False, False), ("position", 3, False, False),
+    ("all", 3, False, True)])
+def test_slot_grad_reduce_equals_k3(device, monkeypatch, tile, chunk, parts,
+                                    channels, cotangent, truncate):
+    # 256- and 1024-pixel tiles, 32- and 128-face blocks (256 and 1024
+    # threads); 2048-pixel stacks of 14 or more planes take a ring of one
+    # slot, 35-pixel stacks of an odd plane count 4-byte copies (the
+    # 8 position planes stay 16-byte aligned); a truncating budget zeroes
+    # the face blocks it cuts.
+    shape = _check_face_major_reductions(device, monkeypatch, parts,
+                                         channels, cotangent, tile, chunk,
+                                         truncate)
+    wide = parts != "position"
+    assert shape.depth == (1 if tile == (16, 128) and wide else 2)
+    assert (shape.staged % 4 != 0) == (tile == (5, 7) and wide)
+
+
+def test_face_major_edge_runs(device):
+    # Runs of 0, 1, 37 and more visits than a block's visit list.
+    scene = chip_smoke.bench_scene(2, 64, 16, device)
+    calls, info = chip_smoke.kernel_inputs(scene)
+    chip_smoke.check_reduce_walk("edge", calls, info)

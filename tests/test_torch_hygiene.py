@@ -19,6 +19,7 @@ import ast
 import importlib.util
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -177,6 +178,18 @@ def test_kernels_name_what_they_replace():
             text = (REPO / path).read_text().splitlines()[int(line) - 1]
             assert text.startswith("def _"), (name, text)
             assert text[4:text.index("(")] in header, (name, ref)
+
+
+@pytest.mark.parametrize("source", ["grad_reduce.cu", "slot_grad.cu",
+                                    "grad_math.cuh"])
+def test_face_major_reductions_use_no_atomics(source):
+    # K3's and K6's rows are deterministic by construction: one owner per
+    # row and a fixed order, the lanes combined by a fixed tree.  No
+    # atomic intrinsic, and no PTX atom / red, outside the comments.
+    code = "\n".join(line.split("//")[0] for line in
+                     (PKG / "csrc" / source).read_text().splitlines())
+    assert "atomic" not in code.lower()
+    assert not re.search(r"\b(atom|red)\.", code)
 
 
 def test_cpu_runs_plain_and_other_devices_raise():
