@@ -66,15 +66,21 @@ failure:
         and within the repro's 1e-3 of its numpy reference;
      Every kernel call a path makes (the deferred path's two-call form
      included) is also recorded and held against its plain version on the
-     same inputs, bitwise or within 1e-5 as above; then one line gives the
+     same inputs, bitwise or within 1e-5 as above; then lines give the
      bench's visits per run and the launch shape (pixel lanes, ring
-     depth, colour group) of each K3 and K6 call the paths made;
+     depth, colour group) of each K3 and K6 call the paths made, K9's
+     window pixels per live slot and the launch shape of each K9 call
+     (warps, slots a warp, colour group), and K10's live chunks and bands
+     and the launch shape of each K10 call (chunks a block, shared
+     bytes);
   5. timing (CUDA events, median of 25): each path's step, with its device
-     time per step, busy share, largest device items and K3's and K6's
-     device time from torch.profiler; each kernel against its plain
-     version, its bound (for K3, K6 and K9 the planes of the tiles their
-     runs visit, each once, with the bound from the whole image's planes
-     beside it) and, for the reductions, their library form (K3,
+     time per step, busy share, largest device items and the reductions'
+     (K3/K6, K9, K10) device time from torch.profiler; each kernel
+     against its plain version, its bound (for
+     K3 and K6 the planes of the tiles their runs visit, for K9 of the
+     pixels in its windows, each once, with the bound from the whole
+     image's planes beside it; for K10 the products of the mask's
+     non-zero entries) and, for the reductions, their library form (K3,
      K6, K9: the segment sum, per-pixel rows plus torch.index_add; K10:
      the masks built from the same ids and one float32 batched matmul,
      TF32 off; K11: its masks times its values, one float32 bmm);
@@ -300,6 +306,27 @@ def tile_pixels(tiles, height, width, tile_h, tile_w):
     return int((rows * cols).sum())
 
 
+def union_pixels(windows, live, tile_h, tile_w):
+    """The pixels in the union of the live slots' windows of each tile
+    (grad_dense.face_windows of [B*T, slots] slots), summed over the
+    tiles: each covered pixel once."""
+    from dirt_tpu_torch.ops import grad_dense
+    keep = live & (grad_dense.window_pixels(windows) > 0)
+    w = windows[keep]
+    run = torch.nonzero(keep)[:, 0]
+    # Each window adds one over its rectangle: corner marks, then two
+    # running sums.
+    marks = torch.zeros(windows.shape[0], tile_h + 1, tile_w + 1,
+                        dtype=torch.int32, device=windows.device)
+    one = torch.ones_like(run, dtype=torch.int32)
+    for r, c, sign in ((w[:, 0], w[:, 2], 1), (w[:, 0], w[:, 3] + 1, -1),
+                       (w[:, 1] + 1, w[:, 2], -1),
+                       (w[:, 1] + 1, w[:, 3] + 1, 1)):
+        marks.index_put_((run, r, c), sign * one, accumulate=True)
+    cover = marks.cumsum(1).cumsum(2)[:, :tile_h, :tile_w]
+    return int((cover > 0).sum())
+
+
 def repro_reference(planes, ids, counts, chunk):
     """repro/mosaic_scalar_smem_accum.py's numpy `reference`, row by row,
     with the rows at or past a tile's count left zero (the kernel's loop
@@ -399,8 +426,15 @@ def kernel_inputs(scene):
     dgtable, dgface_ids, dgcounts, _ = grad_dense.pack(
         clip, faces, height, width, dgh, dgw, dgchunk)
     dgrad_args = (dgtable, dgface_ids, dgcounts, dplanes, channels, "all",
-                  dgchunk)
-    live_slots = int((_cdiv(dgcounts, dgchunk) * dgchunk).sum())
+                  dgchunk, height, width, dgh, dgw)
+    # K9 scans each live slot's window (its face's bbox clipped to the
+    # tile): the windows' pixels, and the planes of their union.
+    dlive = (torch.arange(dgface_ids.shape[1], device=dgcounts.device)[None]
+             // dgchunk * dgchunk < dgcounts[:, None])
+    windows = grad_dense.face_windows(*dgrad_args[:2], height, width, dgh,
+                                      dgw)
+    window_pixels = grad_dense.window_pixels(windows)[dlive]
+    live_slots = int(dlive.sum())
 
     mids, mvalues, _ = grad_mxu.band_planes(pixels, weights, aux)
     num_bands, mchunk = _cdiv(height, grad_mxu.BAND_H), grad_mxu.CHUNK
@@ -413,6 +447,9 @@ def kernel_inputs(scene):
     ncols, mpix = mvalues.shape[-2], mvalues.shape[-1]
     live_items = int(_cdiv(mcounts, mchunk).sum())
     mxu_rows_bytes = mface_ids.numel() * 2 * ncols * 4
+    # The mask's non-zero entries: a covered pixel matches one listed face
+    # before and one after the dilation.
+    mxu_matches = int((mids >= 0).sum())
     # Pixels each reduction matches: one face per covered pixel, before
     # (colour) and after (position) the dilation.
     n_pos = int((planes[:, 7] >= 0).sum())
@@ -431,10 +468,9 @@ def kernel_inputs(scene):
                          ("grad_reduce",
                           csr_tiles(gstarts, gcounts, tile_ids), block_tiles),
                          ("slot_grad_reduce", gslot_dma[slot_item >= 0],
-                          block_tiles),
-                         ("dense_grad_reduce",
-                          torch.nonzero(dgcounts.reshape(-1) > 0)[:, 0],
-                          dense_tiles))}
+                          block_tiles))}
+    reduce_planes["dense_grad_reduce"] = (
+        union_pixels(windows, dlive, dgh, dgw) * n_planes * 4)
     flat_planes = grad_dense.prepass_and_planes(pixels, weights, aux,
                                                 "all")[0]
     library = lambda: segment_sum(flat_planes, clip, faces, channels)
@@ -481,18 +517,18 @@ def kernel_inputs(scene):
                               + reduce_planes["dense_grad_reduce"]
                               + live_slots * 4
                               + dgface_ids.numel() * d_out * 4,
-                              live_slots * dgh * dgw * OPS_PIXEL_SCAN
+                              int(window_pixels.sum()) * OPS_PIXEL_SCAN
                               + matches),
         "pallas_raster": (_nbytes(dtable, dcounts, background) + listed * 4
                           + pallas_out_bytes,
                           listed * dth * dtw * OPS_FACE_TEST
                           + batch * height * width
                           * (OPS_SHADE_BASE + 6 * channels)),
-        # The products of the live items (a multiply-add is 2 flops), on
-        # the bf16 tensor cores.
+        # The products of the mask's non-zero entries with the three
+        # groups' columns (a multiply-add is 2 flops), on the bf16 tensor
+        # cores.
         "mxu_grad": (_nbytes(*mxu_args[:4]) + mxu_rows_bytes,
-                     2 * live_items * 2 * mchunk * mpix * ncols * 3,
-                     PEAK_BF16_OPS_PER_MS),
+                     2 * mxu_matches * ncols * 3, PEAK_BF16_OPS_PER_MS),
     }
     calls = {
         "hit_plane": (lambda: fb.hit_plane(*hit_args),
@@ -538,7 +574,9 @@ def kernel_inputs(scene):
                   for name, nbytes in reduce_planes.items()}
     return calls, dict(work=work, all_planes=all_planes, libraries=libraries,
                        channels=channels, finalize=finalize, prepass=prepass,
-                       reduce_args=reduce_args, visits=gcounts, sweep_tiles={
+                       reduce_args=reduce_args, visits=gcounts,
+                       window_pixels=window_pixels, live_items=live_items,
+                       live_bands=int((mcounts > 0).sum()), sweep_tiles={
                            "raster_sweep": (th, tw),
                            "slot_sweep": (th, tw),
                            "resident_sweep": (th, tw),
@@ -867,6 +905,10 @@ BITWISE = ("hit_plane", "raster_sweep", "slot_sweep", "resident_sweep",
 # The launch shape of every K3 / K6 call the paths make (check_recorded):
 # {(kernel, parts, channels, chunk, pix): grad_blocks.ReduceShape}.
 REDUCE_LAUNCHES = {}
+# ... of every K9 call: {(parts, channels, slots): grad_dense.DenseShape};
+# of every K10 call: {(columns, chunk, chunks a band): grad_mxu.MxuShape}.
+DENSE_LAUNCHES = {}
+MXU_LAUNCHES = {}
 
 
 def _ops_module(name):
@@ -907,18 +949,29 @@ def check_recorded(tag, path, calls):
     and K10 within ROW_TOL;
     fails if a kernel of `path` has no recorded call.  Returns {kernel:
     [shape of each call's first result]}."""
-    from dirt_tpu_torch.ops import grad_blocks
+    from dirt_tpu_torch.ops import _cuda, grad_blocks, grad_dense, grad_mxu
     checked = {}
     for name, args, kwargs, got in calls:
         module, _, plain = WRAPPERS[name]
         plain = getattr(_ops_module(module), plain)
+        named = inspect.signature(plain).bind(*args, **kwargs).arguments
         if name in ("grad_reduce", "slot_grad_reduce"):
-            named = inspect.signature(plain).bind(*args, **kwargs).arguments
             table, planes = named["face_table"], named["planes"]
             REDUCE_LAUNCHES[(name, named["parts"], named["channels"],
                              table.shape[1], planes.shape[2])] = (
                 grad_blocks.launch_shape(table, planes, named["channels"],
                                          named["parts"]))
+        elif name == "dense_grad_reduce":
+            parts, channels = named["parts"], named["channels"]
+            slots = named["face_ids"].shape[1]
+            DENSE_LAUNCHES[(parts, channels, slots)] = grad_dense.dense_shape(
+                slots, channels, parts != "position")
+        elif name == "mxu_grad":
+            ncols, chunk = named["values"].shape[-2], named["chunk"]
+            num_chunks = named["face_ids"].shape[-1] // chunk
+            MXU_LAUNCHES[(ncols, chunk, num_chunks)] = grad_mxu.mxu_shape(
+                chunk, num_chunks,
+                _cuda.shared_memory_optin(named["face_ids"].device))
         want = _tensors(plain(*args, **kwargs))
         torch.cuda.synchronize()
         for g, w in zip(got, want, strict=True):
@@ -1328,11 +1381,17 @@ def time_ms(fn, reps):
     return statistics.median(times)
 
 
+# The reductions' CUDA kernels by the names the profiler shows.
+REDUCTION_KERNELS = {"K3/K6": ("grad_reduce_kernel", "slot_grad_kernel"),
+                     "K9": ("dense_grad_kernel",),
+                     "K10": ("mxu_grad_kernel",)}
+
+
 def device_profile(fn, reps):
     """torch.profiler's view of fn(), per call over `reps` calls after one
-    warm-up: (device ms, device kernels, {largest device items: ms}, K3's
-    and K6's device ms); the device ms is None where the profiler records
-    no device time."""
+    warm-up: (device ms, device kernels, {largest device items: ms},
+    {reduction (REDUCTION_KERNELS): its device ms}); the device ms is None
+    where the profiler records no device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1345,16 +1404,18 @@ def device_profile(fn, reps):
               if str(e.device_type).endswith("CUDA")
               and e.self_device_time_total > 0]
     if not device:
-        return None, 0, {}, 0.0
-    items, walk = {}, 0.0
+        return None, 0, {}, {}
+    items = {}
+    reductions = dict.fromkeys(REDUCTION_KERNELS, 0.0)
     for e in device:
         ms = e.self_device_time_total / 1e3 / reps
         items[e.key[:48]] = items.get(e.key[:48], 0.0) + ms
-        if "grad_reduce_kernel" in e.key or "slot_grad_kernel" in e.key:
-            walk += ms
+        for label, names in REDUCTION_KERNELS.items():
+            if any(name in e.key for name in names):
+                reductions[label] += ms
     top = dict(sorted(items.items(), key=lambda kv: -kv[1])[:4])
     return (sum(items.values()), sum(e.count for e in device) / reps,
-            {k: round(v, 4) for k, v in top.items()}, walk)
+            {k: round(v, 4) for k, v in top.items()}, reductions)
 
 
 def bound(nbytes, ops, peak_ops_per_ms=PEAK_OPS_PER_MS):
@@ -1431,6 +1492,21 @@ def main():
           f"chunk, pix): (lanes, ring depth, colour group, shared bytes) "
           + "; ".join(f"{key}: ({s.lanes}, {s.depth}, {s.group}, {s.smem})"
                       for key, s in REDUCE_LAUNCHES.items()))
+    from dirt_tpu_torch.ops import grad_dense, grad_mxu
+    window = info["window_pixels"].float()
+    phase("kernels", f"K9 at the bench configuration: window pixels per "
+          f"live slot mean {float(window.mean()):.2f}, max "
+          f"{int(window.max())} of a tile's "
+          f"{grad_dense.TILE_H * grad_dense.TILE_W}, over {window.numel()} "
+          f"live slots; launch shapes (parts, channels, slots): (warps, "
+          f"slots a warp, colour group) " + "; ".join(
+              f"{key}: {tuple(s)}" for key, s in DENSE_LAUNCHES.items()))
+    phase("kernels", f"K10 at the bench configuration: {info['live_items']} "
+          f"live chunks in {info['live_bands']} live bands; clusters of "
+          f"{grad_mxu.SPLIT} blocks a band, {grad_mxu.DEPTH} ring stages; "
+          f"launch shapes (columns, chunk, chunks a band): (chunks a block, "
+          f"shared bytes) " + "; ".join(
+              f"{key}: {tuple(s)}" for key, s in MXU_LAUNCHES.items()))
 
     # 5. Timing
     paths = {
@@ -1445,16 +1521,19 @@ def main():
     }
     steps = {name: time_ms(run, STEPS) for name, run in paths.items()}
     for name, run in paths.items():
-        device_ms, n_kernels, top, walk = device_profile(run, PROFILE_STEPS)
+        device_ms, n_kernels, top, reductions = device_profile(
+            run, PROFILE_STEPS)
         device, busy = "not measured", "not measured"
         if device_ms is not None:
             device = f"{device_ms:.4f} ms/step"
             busy = f"{device_ms / steps[name]:.3f}"
+        reduced = ", ".join(f"{label} {ms:.4f}"
+                            for label, ms in reductions.items())
         phase("profile", f"{name}: device {device} (torch.profiler, "
               f"{PROFILE_STEPS} steps), busy share {busy} of the "
               f"{steps[name]:.4f} ms step, "
-              f"{n_kernels:.0f} device kernels/step, largest {top}, K3/K6 "
-              f"{walk:.4f} ms/step on {card_line}")
+              f"{n_kernels:.0f} device kernels/step, largest {top}, "
+              f"reductions ({reduced}) ms/step on {card_line}")
     kernels = []
     for name, (kernel, plain) in calls.items():
         k = _cuda.KERNELS[name]

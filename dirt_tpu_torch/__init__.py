@@ -5,7 +5,7 @@ A second package beside the JAX one: the same differentiable rasteriser
 clip, lexicographic depth test, filter-based gradients with occluder
 dilation), mirroring dirt_tpu's modules and function names.  On CUDA
 tensors the "blocks", "dense" and "pallas" backends and the "mxu"
-gradient (DIRT_TPU_TORCH_GRAD_BACKEND=mxu) run eight hand-written sm_90a
+gradient (DIRT_TPU_TORCH_GRAD_BACKEND=mxu) run twelve hand-written sm_90a
 kernels (dirt_tpu_torch/csrc/); on CPU tensors they run plain PyTorch.
 Entry points run on the card unless the caller passes CPU tensors or
 device="cpu".  It never imports jax.

@@ -7,8 +7,9 @@
 //   gx_k += bary_d_k * ax, gy_k += bary_d_k * ay,
 //   gw_k += bary_d_k * (Px * cx + Py * cy)      where face_d == fid,
 //   colour_kc += bary_pre_k * grad_c             where face_pre == fid,
-// in registers (gw is negated when written), G colour channels a pass.
-// K9 takes four a pass (kGroup); K3 and K6 take 4, 8 or 12.
+// in registers (gw is negated when written), G colour channels a pass
+// (4, 8 or 12; the wrappers' launch shapes pick G).  K9 combines a warp's
+// partial sums with warp_sum, K3 and K6 theirs with combine_lanes.
 //
 // The run walk, reduce_run, is K3's and K6's whole kernel body: the H100
 // form of dirt_tpu/ops/grad_blocks.py's face-major reductions
@@ -47,8 +48,6 @@
 
 namespace dirt {
 
-constexpr int kGroup = 4;   // K9's colour channels per pass
-
 // Plane indices of grad_dense.plane_layout (-1: not in the stack).
 struct GradLayout {
   int ax, ay, px, py, bd, fd, bp, fp, grad;
@@ -68,7 +67,6 @@ struct GradSumsN {
   float gx[3], gy[3], gw[3];
   float gc[3][G];
 };
-using GradSums = GradSumsN<kGroup>;
 
 template <int G>
 __device__ __forceinline__ void clear_sums(GradSumsN<G>& s) {
@@ -134,6 +132,26 @@ __device__ __forceinline__ void write_sums(float* dst, int d_corner,
     for (int c = 0; c < G; ++c) {
       if (c < nc) d[col_base + c0 + c] = s.gc[k][c];
     }
+  }
+}
+
+// Sums every lane's partial sums over the warp by a butterfly (xor 16, 8,
+// 4, 2, 1): lanes i and i ^ m add the same two values, so every lane ends
+// with the same bits, in the same order in every call.  All 32 lanes must
+// call it.
+template <int G>
+__device__ __forceinline__ void warp_sum(GradSumsN<G>& s) {
+  auto add = [](float& v) {
+#pragma unroll
+    for (int m = 16; m >= 1; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+  };
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    add(s.gx[k]);
+    add(s.gy[k]);
+    add(s.gw[k]);
+#pragma unroll
+    for (int c = 0; c < G; ++c) add(s.gc[k][c]);
   }
 }
 

@@ -45,6 +45,19 @@ ptr = ctypes.c_void_p
 i32 = ctypes.c_int
 f32 = ctypes.c_float
 
+# Colour channels a pass of a gradient kernel can take (K3, K6, K9): the
+# instantiations of grad_math.cuh's GradSumsN<G>.
+GROUPS = (4, 8, 12)
+
+
+def colour_group(channels, want_col):
+    """The colour channels a gradient kernel's pass takes: the least of
+    GROUPS that covers `channels`, else the largest (then more than one
+    pass); GROUPS[0] where no colour is reduced."""
+    if not want_col:
+        return GROUPS[0]
+    return next((g for g in GROUPS if g >= channels), GROUPS[-1])
+
 
 def _nvcc():
     for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):

@@ -89,7 +89,6 @@ def _layout_args(parts, channels):
 
 VISIT_LIST = 1024      # tile ids of the list (grad_math.cuh's kVisitList)
 MAX_LANES = 8          # pixel lanes per face
-GROUPS = (4, 8, 12)    # colour channels a pass can take
 _SCRATCH = 64          # ints after the list (grad_math.cuh's kScratch)
 
 ReduceShape = collections.namedtuple(
@@ -102,8 +101,8 @@ def reduce_shape(chunk, staged, channels, want_col, optin):
     block:
       lanes    P, the largest power of two <= min(MAX_LANES, 1024 //
                chunk): a block has chunk * P <= 1024 threads;
-      group    colour channels a pass: the least of GROUPS that covers
-               `channels`, else the largest (then more than one pass);
+      group    colour channels a pass (_cuda.colour_group): the least
+               of _cuda.GROUPS that covers `channels`, else the largest;
       depth    the ring's slots: 2 where two stacks fit `optin` beside the
                list, else 1;
       slot     floats a ring slot takes (`staged` rounded up to 4);
@@ -116,8 +115,7 @@ def reduce_shape(chunk, staged, channels, want_col, optin):
         raise ValueError(f"a {chunk}-face block exceeds 1024 threads (one "
                          "per face and pixel lane)")
     lanes = 1 << (min(MAX_LANES, 1024 // chunk).bit_length() - 1)
-    group = (next((g for g in GROUPS if g >= channels), GROUPS[-1])
-             if want_col else GROUPS[0])
+    group = _cuda.colour_group(channels, want_col)
     slot = _cdiv(staged, 4) * 4
     combine = (lanes // 2) * chunk * (9 + 3 * group)
     for depth in (2, 1):

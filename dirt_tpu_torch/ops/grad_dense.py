@@ -14,8 +14,10 @@ kernel shares (PyTorch port of dirt_tpu/ops/grad_dense.py).
 
 The dense gradient's tile is 32x128 pixels, dirt_tpu's own: its rows are
 O(T x slots x d_out), ~9.4 MB at the bench size against ~151 MB at 16x16
-tiles, and K9 runs one thread per face slot, so the tile's pixel count
-is not bounded by a block's threads.
+tiles.  K9 runs one warp per face slot over the slot's window (the
+face's table bbox clipped to the tile, face_windows), so the tile's pixel
+count is not bounded by a block's threads; its launch shape is
+dense_shape.
 
 For face f with original index fid, and corner k:
 
@@ -30,6 +32,8 @@ exact zeros: every product carries an ax/ay/Px/Py/bary_pre factor that the
 pre-pass zeroes outside coverage.
 """
 
+import collections
+
 import torch
 
 from . import _cuda, backward, forward_pallas, grad_tables
@@ -40,8 +44,6 @@ CHUNK = 64
 # Plain reduction: tiles per vectorised step, bounding the [tiles, chunk,
 # PIX] planes at ~2^25 elements.
 _PLAIN_ELEMENTS = 1 << 25
-# K9 stages planes in pieces of at most this many floats (48 KB).
-_PIECE_FLOATS = 12 * 1024
 
 
 def _cdiv(a, b):
@@ -186,19 +188,57 @@ def no_face_grads(vertices, grad_pixels, cotangent):
 
 DENSE_GRAD_REDUCE = _cuda.Kernel(
     "dense_grad_reduce", "dirt_dense_grad_reduce",
-    [_cuda.ptr] * 5 + [_cuda.i32] * 20 + [_cuda.ptr],
+    [_cuda.ptr] * 5 + [_cuda.i32] * 25 + [_cuda.ptr],
     replaces=("dirt_tpu/ops/grad_dense.py:193, "
               "dirt_tpu/ops/grad_dense.py:170"),
     source="dense_grad.cu")
 
 
+def face_windows(face_table, face_ids, height, width, tile_h, tile_w):
+    """The window K9 scans for each slot: the face's table bbox (columns
+    0-3, widened for dilation) clipped to the slot's tile, in tile-local
+    (r0, r1, c0, c1), inclusive: [B*T, slots, 4] int64, empty where r0 > r1
+    or c0 > c1 (padded rows, faces that miss the tile)."""
+    tiles_x = _cdiv(width, tile_w)
+    tiles = _cdiv(height, tile_h) * tiles_x
+    t = torch.arange(face_ids.shape[0], device=face_ids.device) % tiles
+    oy = (t // tiles_x * tile_h)[:, None]
+    ox = (t % tiles_x * tile_w)[:, None]
+    box = face_table[face_ids.long(), :4].long()
+    return torch.stack([(box[..., 0] - oy).clamp(min=0),
+                        (box[..., 1] - oy).clamp(max=tile_h - 1),
+                        (box[..., 2] - ox).clamp(min=0),
+                        (box[..., 3] - ox).clamp(max=tile_w - 1)], dim=-1)
+
+
+def window_pixels(windows):
+    """Pixels of each face_windows window (0 where empty)."""
+    rows = (windows[..., 1] - windows[..., 0] + 1).clamp(min=0)
+    return rows * (windows[..., 3] - windows[..., 2] + 1).clamp(min=0)
+
+
+def _tile_grid(runs, pix, height, width, tile_h, tile_w):
+    """(tiles_x, tiles per image) of runs of `pix`-pixel tiles; raises
+    where they are not whole images of tile_h x tile_w tiles."""
+    tiles_x = _cdiv(width, tile_w)
+    tiles = _cdiv(height, tile_h) * tiles_x
+    if pix != tile_h * tile_w or runs % tiles:
+        raise ValueError(f"{runs} runs of {pix} pixels are not whole images "
+                         f"of {tiles} {tile_h}x{tile_w} tiles")
+    return tiles_x, tiles
+
+
 def dense_grad_reduce_plain(face_table, face_ids, counts, planes, channels,
-                            parts, chunk):
+                            parts, chunk, height, width, tile_h, tile_w):
     """Rows [B*T, slots, d_out]: for every live chunk of tile run bt's face
     list (chunk c with c * chunk < counts[bt]), _chunk_sums of the chunk's
-    faces over the tile's planes; zeros for the dead chunks."""
+    faces over the tile's planes; zeros for the dead chunks.  height,
+    width, tile_h and tile_w place run bt's tile in its image (tile bt %
+    T, row-major); K9 clips each face's bbox to it, the plain version sums
+    over the whole tile."""
     runs, slots = face_ids.shape
     pix = planes.shape[-1]
+    _tile_grid(runs, pix, height, width, tile_h, tile_w)
     out = torch.zeros(runs, slots, d_out_for(parts, channels),
                       device=planes.device)
     step = max(1, _PLAIN_ELEMENTS // (chunk * pix))
@@ -217,22 +257,44 @@ def dense_grad_reduce_plain(face_table, face_ids, counts, planes, channels,
     return out
 
 
+# --------------------------------------------------------------------------
+# The launch shape of K9
+# --------------------------------------------------------------------------
+
+MAX_WARPS = 8          # warps a block (dense_grad.cu's kMaxWarps)
+PER_WARP = 4           # face slots a warp takes in turn, at most
+
+DenseShape = collections.namedtuple("DenseShape", "warps per_warp group")
+
+
+def dense_shape(slots, channels, want_col):
+    """The DenseShape of a K9 launch over `slots`-slot face lists:
+      warps     warps a block: the largest power of two <= MAX_WARPS that
+                divides `slots`;
+      per_warp  face slots a warp takes in turn (a block: warps x
+                per_warp consecutive slots): the largest power of two <=
+                PER_WARP that divides slots / warps;
+      group     colour channels a pass (_cuda.colour_group)."""
+    warps = min(MAX_WARPS, slots & -slots)
+    per_warp = min(PER_WARP, (slots // warps) & -(slots // warps))
+    return DenseShape(warps, per_warp, _cuda.colour_group(channels, want_col))
+
+
 def dense_grad_reduce(face_table, face_ids, counts, planes, channels, parts,
-                      chunk):
+                      chunk, height, width, tile_h, tile_w):
     """K9 wrapper: dense_grad_reduce_plain's rows, by the CUDA kernel for
     CUDA tensors and by the plain version for CPU tensors.
 
     face_table [B*F', _DF] f32 (the images' gradient tables stacked);
     face_ids [B*T, slots] int32 rows of it, batch-folded, slots a multiple
     of `chunk`; counts [B*T] int32; planes [B*T, NP, PIX] f32 in
-    plane_layout(parts, channels) order (NP may include zero pad planes)."""
+    plane_layout(parts, channels) order (NP may include zero pad planes),
+    PIX = tile_h * tile_w."""
     if not _cuda.on_cuda(face_table, face_ids, counts, planes):
         return dense_grad_reduce_plain(face_table, face_ids, counts, planes,
-                                       channels, parts, chunk)
+                                       channels, parts, chunk, height, width,
+                                       tile_h, tile_w)
     runs, slots = face_ids.shape
-    if chunk > 1024:
-        raise ValueError(f"dense_grad_reduce runs one thread per face slot: "
-                         f"a {chunk}-slot chunk exceeds 1024 threads")
     if slots % chunk:
         raise ValueError(f"{slots} slots are not whole {chunk}-slot chunks")
     np_stride, pix = planes.shape[1], planes.shape[2]
@@ -240,7 +302,8 @@ def dense_grad_reduce(face_table, face_ids, counts, planes, channels, parts,
     if np_stride < n_planes:
         raise ValueError(f"planes hold {np_stride} planes, the {parts!r} "
                          f"layout needs {n_planes}")
-    piece = min(pix, max(32, _PIECE_FLOATS // n_planes // 32 * 32))
+    tiles_x, tiles = _tile_grid(runs, pix, height, width, tile_h, tile_w)
+    shape = dense_shape(slots, channels, parts in ("all", "color"))
     d_out = d_out_for(parts, channels)
     layout = [L.get(name, -1) for name in (
         "ax", "ay", "px", "py", "bary_d", "face_d", "bary_pre", "face_pre",
@@ -252,8 +315,9 @@ def dense_grad_reduce(face_table, face_ids, counts, planes, channels, parts,
         _cuda.check("counts", counts, torch.int32, (runs,)),
         _cuda.check("planes", planes, torch.float32, (runs, np_stride, pix)),
         _cuda.check("out", out, torch.float32),
-        runs, slots, chunk, face_table.shape[1], n_planes, np_stride, pix,
-        piece, d_out, channels, int(parts in ("all", "position")), *layout,
+        runs, slots, chunk, face_table.shape[1], np_stride, pix, d_out,
+        channels, int(parts in ("all", "position")), *layout, tile_h, tile_w,
+        tiles_x, tiles, shape.group, shape.warps, shape.per_warp,
         _cuda.stream())
     return out
 
@@ -296,7 +360,8 @@ def rasterise_grad_batch(vertices, faces, pixels, grad_pixels, aux,
         vertices, faces, pixels.shape[1], pixels.shape[2], tile_h, tile_w,
         chunk)
     face_grads = dense_grad_reduce(face_table, face_ids, counts, planes,
-                                   channels, parts, chunk)
+                                   channels, parts, chunk, pixels.shape[1],
+                                   pixels.shape[2], tile_h, tile_w)
 
     # Every (tile, slot) row goes to its original face's corners; padded
     # slots map to face 0 and carry exact zeros.

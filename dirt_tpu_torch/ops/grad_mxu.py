@@ -39,6 +39,8 @@ of the last band past the image edge get face id -2 (matching no face)
 and zero values.
 """
 
+import collections
+
 import torch
 
 from . import (_cuda, backward, forward_pallas, geometry, grad_dense,
@@ -53,7 +55,7 @@ _NPOS = 3 + 3 + 6 + 6   # b*Ax (3), b*Ay (3), Qx (6), Qy (6)
 
 MXU_GRAD = _cuda.Kernel(
     "mxu_grad", "dirt_mxu_grad",
-    [_cuda.ptr] * 5 + [_cuda.i32] * 5 + [_cuda.ptr],
+    [_cuda.ptr] * 5 + [_cuda.i32] * 7 + [_cuda.ptr],
     replaces="dirt_tpu/ops/grad_mxu.py:122", source="mxu_grad.cu")
 
 
@@ -182,6 +184,44 @@ def mxu_grad_plain(face_ids, counts, ids, values, chunk):
     return out.reshape(batch, bands * num_chunks, 2 * chunk, -1)
 
 
+# The launch shape of K10 (mxu_grad.cu's constants): WARPS warps a block,
+# each holding up to TILES m16 tiles of mask rows; a band's pixels split
+# over a cluster of SPLIT blocks; STAGE_BYTES of shared memory a ring stage
+# (the two id planes and three groups of 32 padded value rows of 64
+# pixels), DEPTH stages, or COMBINE_BYTES of partial rows where they take
+# more; then TABLE_BYTES (the block's sorted face ids and positions, the
+# stages' tile marks).
+WARPS = 16
+TILES = 4
+SPLIT = 2
+DEPTH = 4
+STAGE_BYTES = 2 * 64 * 4 + 3 * 32 * 72 * 2
+COMBINE_BYTES = WARPS * TILES * 32 * 16 * 4
+TABLE_BYTES = WARPS * TILES * 8 * 8 + 2 * 4 * 2 * 4
+
+MxuShape = collections.namedtuple("MxuShape", "chunks smem")
+
+
+def mxu_shape(chunk, num_chunks, optin):
+    """The MxuShape of a K10 launch on `num_chunks` list chunks of `chunk`
+    faces a band, under `optin` bytes of shared memory a block:
+      chunks  list chunks a block serves (the band's 2 * chunk mask rows a
+              chunk, in m16 tiles): all of them where WARPS * TILES tiles
+              hold them, else as many as fit (a group of chunks a cluster);
+      smem    bytes of dynamic shared memory: the larger of the ring
+              (DEPTH * STAGE_BYTES) and the partial rows, then TABLE_BYTES.
+    Raises where the chunk or the shared memory does not fit."""
+    if chunk % 16 or chunk > 512:
+        raise ValueError(f"K10 takes chunks of a multiple of 16 faces, at "
+                         f"most 512, not {chunk}")
+    chunks = min(num_chunks, WARPS * TILES // (chunk // 8))
+    smem = max(DEPTH * STAGE_BYTES, COMBINE_BYTES) + TABLE_BYTES
+    if smem > optin:
+        raise ValueError(f"{smem} bytes of stages exceed the {optin}-byte "
+                         f"shared memory of a block")
+    return MxuShape(chunks, smem)
+
+
 def mxu_grad(face_ids, counts, ids, values, chunk):
     """K10 wrapper: mxu_grad_plain's rows, by the CUDA kernel for CUDA
     tensors and by the plain version for CPU tensors.
@@ -194,14 +234,15 @@ def mxu_grad(face_ids, counts, ids, values, chunk):
     batch, bands, _, pix = ids.shape
     ncols = values.shape[-2]
     slots = face_ids.shape[-1]
-    if chunk % 16 or 2 * chunk > 1024 or slots % chunk:
-        raise ValueError(f"mxu_grad runs one warp per 32 of the 2 x {chunk} "
-                         f"mask rows: the chunk must be a multiple of 16, at "
-                         f"most 512, and divide the {slots} slots")
+    if slots % chunk:
+        raise ValueError(f"{chunk}-face chunks do not divide the {slots} "
+                         f"slots")
     if pix % 8:
         raise ValueError(f"mxu_grad copies 8 pixels at a time: a band of "
                          f"{pix} pixels is not a multiple of 8")
     num_chunks = slots // chunk
+    shape = mxu_shape(chunk, num_chunks,
+                      _cuda.shared_memory_optin(face_ids.device))
     out = torch.empty(batch, bands * num_chunks, 2 * chunk, ncols,
                       device=values.device)
     MXU_GRAD(
@@ -211,7 +252,8 @@ def mxu_grad(face_ids, counts, ids, values, chunk):
         _cuda.check("values", values, torch.bfloat16,
                     (batch, bands, 3, ncols, pix)),
         _cuda.check("out", out, torch.float32),
-        batch * bands, num_chunks, chunk, pix, ncols, _cuda.stream())
+        batch * bands, num_chunks, chunk, pix, ncols, shape.chunks,
+        shape.smem, _cuda.stream())
     return out
 
 

@@ -9,7 +9,9 @@ The checks are chip_smoke.py's, at small shapes: the hit plane, the
 sweeps' states (the slot sweep K5b's and the resident sweep K5's also
 equal to K1's), the fused sweep-and-shade outputs and the plane stack
 (also with the diagonal dilation) bitwise, the reductions' rows within
-1e-5 (normalised; the slot reduction K6's equal to K3's); the blocks,
+1e-5 (normalised; the slot reduction K6's equal to K3's; K9 also at
+windows clipped by the tile edges, K10 over several chunks a band, each
+equal to itself in two calls); the blocks,
 dense and pallas paths against the native oracle, each other and the
 plain gradient, the mxu gradient against the plain one, the deferred path
 on both backends against the two-call form, the slot and resident
@@ -174,25 +176,67 @@ def test_grad_reduce_parts_and_wide_cotangent(device, monkeypatch, parts,
                                  cotangent)
 
 
-@pytest.mark.parametrize("parts,cot_channels", [
-    ("all", 10), ("position", 3), ("color", 3)])
-def test_dense_grad_reduce_parts_and_pieces(device, parts, cot_channels):
-    # 32x128 tiles stage their planes in several pieces; ten colour
-    # channels take three passes.
+def _dense_inputs(device, parts, channels, crossing=False):
+    """K9's arguments on a 72 x 80 soup (a camera-crossing one when
+    `crossing`): 32x128 tiles of 64-face chunks, `channels` colour
+    channels from a cotangent for parts "all", else from the scene."""
     from dirt_tpu_torch.ops import dispatch, grad_dense, prepass_fused
-    bg, v, c, f, gp = _soup(device, 3, size=72)
+    bg, v, c, f, gp = _soup(device, 3 if parts == "all" else channels,
+                            size=72)
+    if crossing:
+        v[..., 3] = torch.linspace(-0.5, 1.5, v.shape[1], device=device)
     px, aux = dispatch.forward_batch(bg, v, c, f, "dense")
-    cot = (torch.randn(*gp.shape[:3], cot_channels, device=device)
+    cot = (torch.randn(*gp.shape[:3], channels, device=device)
            if parts == "all" else None)
     planes, _, _ = prepass_fused.gradient_planes(px, gp, aux, parts, cot,
                                                  32, 128)
-    table, face_ids, counts, _ = grad_dense.pack(v, f, bg.shape[1],
-                                                 bg.shape[2], 32, 128, 64)
-    args = (table, face_ids, counts, planes, cot_channels, parts, 64)
+    h, w = bg.shape[1:3]
+    table, face_ids, counts, _ = grad_dense.pack(v, f, h, w, 32, 128, 64)
+    return (table, face_ids, counts, planes, channels, parts, 64, h, w, 32,
+            128)
+
+
+def _check_dense(args):
+    """K9 on `args`: within 1e-5 (normalised) of its plain version,
+    non-zero, and equal to itself in a second call."""
+    from dirt_tpu_torch.ops import grad_dense
     rows = grad_dense.dense_grad_reduce(*args)
+    assert torch.equal(rows, grad_dense.dense_grad_reduce(*args))
     want = grad_dense.dense_grad_reduce_plain(*args)
+    assert float(want.abs().max()) > 0
     scale = max(float(want.abs().max()), 1.0)
     assert float((rows - want).abs().max()) / scale <= 1e-5
+
+
+@pytest.mark.parametrize("parts,cot_channels", [
+    ("all", 10), ("position", 3), ("color", 3), ("all", 1), ("all", 3),
+    ("all", 4), ("all", 12), ("all", 13), ("all", 30), ("color", 10),
+    ("color", 13)])
+def test_dense_grad_reduce_parts_and_pieces(device, parts, cot_channels):
+    # Colour channels in groups of 4, 8 or 12 a pass: 13 and 30 take
+    # several.
+    _check_dense(_dense_inputs(device, parts, cot_channels))
+
+
+def test_dense_grad_reduce_windows_at_edges(device):
+    # A camera-crossing soup: unbounded faces (bbox: the whole image)
+    # keep the whole tile within the image, the others' windows are
+    # clipped by the tile edges.
+    from dirt_tpu_torch.ops import grad_dense
+    args = _dense_inputs(device, "all", 3, crossing=True)
+    table, face_ids, counts = args[:3]
+    h, w = args[7:9]
+    windows = grad_dense.face_windows(table, face_ids, *args[7:])
+    live = (torch.arange(face_ids.shape[1], device=device)[None] // 64 * 64
+            < counts[:, None])
+    pixels = grad_dense.window_pixels(windows)[live]
+    box = table[face_ids.long(), :4][live]
+    whole = box == torch.tensor([0., h - 1, 0., w - 1], device=device)
+    assert bool(whole.all(-1).any()) and bool((pixels[whole.all(-1)]
+                                               > 0).all())
+    area = (box[:, 1] - box[:, 0] + 1) * (box[:, 3] - box[:, 2] + 1)
+    assert bool(((pixels > 0) & (pixels < area)).any())
+    _check_dense(args)
 
 
 @pytest.mark.parametrize("channels", [1, 10])
@@ -241,25 +285,39 @@ def test_pallas_raster_any_channel_count(device, channels):
         assert torch.equal(getattr(aux_p, field), getattr(aux_d, field))
 
 
-@pytest.mark.parametrize("channels,chunk", [(1, 16), (3, 128), (16, 64)])
-def test_mxu_grad_columns_and_chunks(device, monkeypatch, channels, chunk):
-    # 18 + 3C columns: 21, 27 and 66 (two passes of at most four
-    # fragments); 37-pixel rows leave a ragged last slice; a 16-face chunk
-    # has one warp.
+@pytest.mark.parametrize("channels,chunk,num_faces", [
+    (1, 16, 70), (3, 128, 70), (16, 64, 70), (2, 32, 70), (5, 16, 70),
+    (10, 48, 70), (3, 128, 600)])
+def test_mxu_grad_columns_and_chunks(device, monkeypatch, channels, chunk,
+                                     num_faces):
+    # 18 + 3C columns: 21, 27, 66 (three passes of at most 32), 24, 33
+    # and 48, in n8 tiles; 37-pixel rows leave a ragged last stage; 70
+    # faces take several chunks a band, all in one block, the band's
+    # pixels split over a cluster of two; 600 faces in 128-face chunks
+    # take five chunks a band, two groups of chunks (four a block) where a
+    # band's list is long.  Each call equals itself.
     from dirt_tpu_torch.ops import dispatch, grad_mxu
     monkeypatch.setattr(grad_mxu, "CHUNK", chunk)
-    bg, v, c, f, gp = _soup(device, channels, size=37)
+    bg, v, c, f, gp = _soup(device, channels, size=37, num_faces=num_faces)
     px, aux = dispatch.forward_batch(bg, v, c, f, "blocks")
     h, w = bg.shape[1:3]
     ids, values, _ = grad_mxu.band_planes(px, gp, aux)
     face_ids, counts, _ = grad_mxu._pack_grad_bands(
         v, f, h, w, -(-f.shape[1] // chunk), -(-h // 16))
     args = (face_ids, counts, ids, grad_mxu.split_bf16(values), chunk)
-    rows = grad_mxu.mxu_grad(*args)
     want = grad_mxu.mxu_grad_plain(*args)
     scale = max(float(want.abs().max()), 1.0)
-    assert float((rows - want).abs().max()) / scale <= 1e-5
     assert float(want.abs().max()) > 0
+    rows = grad_mxu.mxu_grad(*args)
+    assert torch.equal(rows, grad_mxu.mxu_grad(*args))
+    assert float((rows - want).abs().max()) / scale <= 1e-5
+    live_chunks = int((counts + chunk - 1).div(chunk, rounding_mode="floor")
+                      .max())
+    if chunk <= 32:
+        assert live_chunks > 1
+    if num_faces > 512:
+        assert live_chunks > grad_mxu.mxu_shape(
+            chunk, face_ids.shape[-1] // chunk, 232448).chunks
 
 
 def test_diagonal_dilation_kernel(device):

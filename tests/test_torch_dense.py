@@ -346,7 +346,7 @@ def test_dense_grad_reduce_dead_chunks_are_zero(residuals):
     ids = face_ids + rows * torch.arange(2, dtype=torch.int32)[:, None, None]
     out = grad_dense.dense_grad_reduce(
         face_data.reshape(-1, face_data.shape[-1]), ids.reshape(4, -1),
-        counts.reshape(-1), planes, 3, "all", 64)
+        counts.reshape(-1), planes, 3, "all", 64, h, w, 32, 128)
     live = torch.arange(256)[None] // 64 * 64 < counts.reshape(-1, 1)
     assert bool((out[~live] == 0).all())
     assert bool(live.any()) and not bool(live.all())

@@ -109,7 +109,8 @@ def test_chip_smoke_segment_sum_is_the_reduction():
         clip, faces, height, width, th, tw, chunk)
     tiled = prepass_fused.tile_planes(planes, th, tw, planes.shape[1])
     rows = grad_dense.dense_grad_reduce_plain(table, face_ids, counts, tiled,
-                                              channels, "all", chunk)
+                                              channels, "all", chunk, height,
+                                              width, th, tw)
     keys = sorted_orig.long() + torch.arange(batch)[:, None] * num_faces
     want = torch.zeros(batch * num_faces, rows.shape[-1]).index_add_(
         0, keys.reshape(-1), rows.reshape(-1, rows.shape[-1]))
@@ -181,11 +182,13 @@ def test_kernels_name_what_they_replace():
 
 
 @pytest.mark.parametrize("source", ["grad_reduce.cu", "slot_grad.cu",
-                                    "grad_math.cuh"])
+                                    "grad_math.cuh", "dense_grad.cu",
+                                    "mxu_grad.cu"])
 def test_face_major_reductions_use_no_atomics(source):
-    # K3's and K6's rows are deterministic by construction: one owner per
-    # row and a fixed order, the lanes combined by a fixed tree.  No
-    # atomic intrinsic, and no PTX atom / red, outside the comments.
+    # K3's, K6's, K9's and K10's rows are deterministic by construction:
+    # one owner per row and a fixed order, the lanes combined by a fixed
+    # tree or butterfly.  No atomic intrinsic, and no PTX atom / red,
+    # outside the comments.
     code = "\n".join(line.split("//")[0] for line in
                      (PKG / "csrc" / source).read_text().splitlines())
     assert "atomic" not in code.lower()
