@@ -29,7 +29,10 @@ failure:
      inputs K3 and K6 each give equal rows in two calls, and on runs of
      0, 1, 37 and more visits than a block's shared visit list K6 == K3
      bit for bit, both within 1e-5 of their plain versions, the empty
-     run's rows zero;
+     run's rows zero; K1 and K5b each give equal states in two calls on
+     every scene, and on runs of 0, 1, 121 and more visits than their
+     visit list (the staging's two halves, several pieces) K1 and K5b ==
+     their plain versions bit for bit and K5b == K1;
   4. paths, each with every launch counter reset just before and read just
      after, failing if a kernel of the path was not launched:
      a. blocks (the default): rasterise_batch forward + backward; image 0
@@ -66,16 +69,21 @@ failure:
         and within the repro's 1e-3 of its numpy reference;
      Every kernel call a path makes (the deferred path's two-call form
      included) is also recorded and held against its plain version on the
-     same inputs, bitwise or within 1e-5 as above; then lines give the
-     bench's visits per run and the launch shape (pixel lanes, ring
-     depth, colour group) of each K3 and K6 call the paths made, K9's
+     same inputs, bitwise or within 1e-5 as above; then lines give K1's
+     busy runs and visits per busy run at the bench and K1's and K5b's
+     launch shape, the bench's visits per run and the launch shape (pixel
+     lanes, ring depth, colour group) of each K3 and K6 call the paths
+     made, K9's
      window pixels per live slot and the launch shape of each K9 call
      (warps, slots a warp, colour group), and K10's live chunks and bands
      and the launch shape of each K10 call (chunks a block, shared
      bytes);
   5. timing (CUDA events, median of 25): each path's step, with its device
      time per step, busy share, largest device items and the reductions'
-     (K3/K6, K9, K10) device time from torch.profiler; each kernel
+     (K3/K6, K9, K10) device time from torch.profiler; K1 and K5b on the
+     bench scene, the large one and a timing-only "zoom" scene (the bench
+     with the projection's half-width 0.05 for 0.25: many busy tiles),
+     profiler device ms and CUDA-event ms; each kernel
      against its plain version, its bound (for
      K3 and K6 the planes of the tiles their runs visit, for K9 of the
      pixels in its windows, each once, with the bound from the whole
@@ -150,9 +158,10 @@ def _cdiv(a, b):
 # Scenes (numpy from a seed, then tensors on the device)
 # --------------------------------------------------------------------------
 
-def bench_scene(batch, resolution, segments, device):
+def bench_scene(batch, resolution, segments, device, right=0.25):
     """The bench.py scene (bench.py:111-137), built with the port's
-    matrices from numpy seed 0."""
+    matrices from numpy seed 0; `right` is the projection's half-width at
+    the near plane (0.05 zooms in: the "zoom" timing scene)."""
     from dirt_tpu_torch import matrices
     from dirt_tpu_torch.utils import meshes
     rng = np.random.RandomState(0)
@@ -163,7 +172,7 @@ def bench_scene(batch, resolution, segments, device):
     view = matrices.compose(matrices.translation(t([0., 0., -3.0])),
                             matrices.rodrigues(t([-0.4, 0., 0.])))
     projection = matrices.perspective_projection(
-        near=0.1, far=20., right=0.25, aspect=1., device=device)
+        near=0.1, far=20., right=right, aspect=1., device=device)
     rotations = matrices.rodrigues(
         t(rng.uniform(-1, 1, size=(batch, 3)).astype(np.float32)))
     clip = torch.einsum("vi,bij->bvj", t(homogeneous), rotations)
@@ -189,6 +198,22 @@ def crossing_scene(device, batch=2, size=128, num_faces=200, seed=3):
     w = rng.uniform(size=(batch, size, size, 3)).astype(np.float32)
     t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=device)
     return t(bg), t(v), t(c), t(f, torch.int32), t(w)
+
+
+def tie_scene(device, seed=5, batch=2, size=64, num_faces=60):
+    """A soup whose faces all appear twice, the copy under index F + i:
+    every covered fragment ties in depth with its twin, and the lower
+    index must win."""
+    rng = np.random.RandomState(seed)
+    nv = 60
+    v = rng.randn(batch, nv, 4).astype(np.float32)
+    v[..., 3] = np.abs(v[..., 3]) + 0.5
+    f = rng.randint(0, nv, size=(batch, num_faces, 3)).astype(np.int32)
+    f = np.concatenate([f, f], axis=1)
+    c = rng.uniform(size=(batch, nv, 3)).astype(np.float32)
+    bg = rng.uniform(size=(batch, size, size, 3)).astype(np.float32)
+    t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=device)
+    return t(bg), t(v), t(c), t(f, torch.int32)
 
 
 def deferred_scene(scene, seed=1):
@@ -575,6 +600,7 @@ def kernel_inputs(scene):
     return calls, dict(work=work, all_planes=all_planes, libraries=libraries,
                        channels=channels, finalize=finalize, prepass=prepass,
                        reduce_args=reduce_args, visits=gcounts,
+                       sweep_args=sweep_args, sweep_visits=counts,
                        window_pixels=window_pixels, live_items=live_items,
                        live_bands=int((mcounts > 0).sum()), sweep_tiles={
                            "raster_sweep": (th, tw),
@@ -621,6 +647,12 @@ def compare_kernels(tag, scene):
         if not torch.equal(states[name], states["raster_sweep"]):
             fail(f"{tag}: {name} state differs from raster_sweep's (max "
                  f"{_max_abs(states[name], states['raster_sweep'])})")
+    for name in ("raster_sweep", "slot_sweep"):
+        again = calls[name][0]()
+        torch.cuda.synchronize()
+        if not torch.equal(again, states[name]):
+            fail(f"{tag}: {name} state differs between two calls (max "
+                 f"{_max_abs(again, states[name])})")
 
     outs_k, outs_p = (f() for f in calls["pallas_raster"])
     torch.cuda.synchronize()
@@ -671,8 +703,9 @@ def compare_kernels(tag, scene):
                 if "resident_sweep" in calls else
                 "K5 not run (the image's table exceeds a block's shared "
                 "memory)")
-    phase("kernels", f"{tag}: K4 hit_plane ==, K1 raster_sweep ==, K5b "
-          f"slot_sweep == (state, pixels; state == K1's), {resident}, K7 "
+    phase("kernels", f"{tag}: K4 hit_plane ==, K1 raster_sweep == (and "
+          f"== in two calls), K5b slot_sweep == (state, pixels; state == "
+          f"K1's; == in two calls), {resident}, K7 "
           f"dense_sweep == (state, pixels), K8 pallas_raster == (pixels, "
           f"aux; pixels == K7's), K2 grad_prepass == (also with the "
           f"diagonal attempts; dilated pixels {dilated}), K3 grad_reduce rel "
@@ -750,6 +783,83 @@ def check_reduce_walk(tag, calls, info):
     phase("kernels", f"{tag}: K3 and K6 each == in two calls; runs of "
           f"{lengths} visits (list of {gb.VISIT_LIST}): K6 == K3, rel "
           f"{rel['grad_reduce']:.2e} vs plain, empty run zero OK")
+
+
+def sweep_edge_runs(sweep_args):
+    """K1's and K5b's inputs on one image of `sweep_args` (raster_sweep's
+    arguments): the image of the busiest run, whose three busiest tiles
+    take runs of 1, 121 and SweepShape.list + 100 visits (more than the
+    staging area and more than the visit list hold), each visiting the
+    image's face blocks in turn, ascending and repeating; every other run
+    takes none.  Returns (the CSR arguments, the slot arguments, the
+    lengths); the slot form gives each listed run a leading no-op slot and
+    one after every fifth visit, and the other runs no slot."""
+    from dirt_tpu_torch.ops import _cuda, forward_blocks as fb
+    table, _, counts, _, channels, height, width, tiles_x, num_tiles, th, \
+        tw = sweep_args
+    per_image = table.shape[0] // (counts.shape[0] // num_tiles)
+    image = int(counts.argmax()) // num_tiles
+    own = counts[image * num_tiles:(image + 1) * num_tiles]
+    tiles = torch.argsort(own, descending=True, stable=True)[:3].tolist()
+    shape = fb.sweep_shape(th * tw, table.shape[1],
+                           _cuda.shared_memory_optin(table.device))
+    lengths = dict(zip(tiles, (1, 121, shape.list + 100)))
+    starts, run_counts, ids = [], [], []
+    slot_tile, slot_block, slot_dma = [], [], []
+    for tile in range(num_tiles):
+        n = lengths.get(tile, 0)
+        starts.append(len(ids))
+        run_counts.append(n)
+        ids += [i % per_image for i in range(n)]
+        if n:
+            slot_tile.append(tile)
+            slot_block.append(-1)
+            slot_dma.append(0)
+        for i in range(n):
+            slot_tile.append(tile)
+            slot_block.append(i % per_image)
+            slot_dma.append(i % per_image)
+            if i % 5 == 4:
+                slot_tile.append(tile)
+                slot_block.append(-1)
+                slot_dma.append(0)
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=table.device)
+    own_table = table[image * per_image:(image + 1) * per_image].contiguous()
+    geometry = (channels, height, width, tiles_x, num_tiles, th, tw)
+    return ((own_table, i32(starts), i32(run_counts), i32(ids), *geometry),
+            (own_table, i32(slot_tile), i32(slot_block), i32(slot_dma), 1,
+             *geometry),
+            [lengths[t] for t in tiles])
+
+
+def check_sweep_walk(tag, info):
+    """K1 and K5b, the run walk: on sweep_edge_runs each equals its plain
+    version and K5b == K1 bit for bit; the runs without a visit are
+    background and the listed runs are not."""
+    from dirt_tpu_torch.ops import forward_blocks as fb, forward_dense
+    csr, slot, lengths = sweep_edge_runs(info["sweep_args"])
+    k1, k5b = fb.raster_sweep(*csr), fb.slot_sweep(*slot)
+    torch.cuda.synchronize()
+    if not torch.equal(k1, fb.raster_sweep_plain(*csr)):
+        fail(f"{tag}: on the edge runs raster_sweep differs from its plain "
+             f"version")
+    if not torch.equal(k5b, k1) or not torch.equal(
+            fb.slot_sweep_plain(*slot), k1):
+        fail(f"{tag}: on the edge runs slot_sweep or its plain version "
+             f"differs from raster_sweep (max {_max_abs(k5b, k1)})")
+    listed = csr[2] > 0
+    init = forward_dense.init_state(info["channels"], k1.shape[2],
+                                    device=k1.device)
+    empty = int((~listed).sum())
+    # The 121-visit run, on the second busiest tile, covers pixels.
+    covered = bool((k1[csr[2] == 121, -1] >= 0).any())
+    if not (torch.equal(k1[~listed], init.expand(empty, -1, -1))
+            and covered):
+        fail(f"{tag}: edge runs: the {empty} runs without a visit are not "
+             f"background, or the 121-visit run covers nothing")
+    phase("kernels", f"{tag}: K1 and K5b on runs of {lengths} visits and "
+          f"{empty} of none: == their plain versions, K5b == K1, empty "
+          f"runs background OK")
 
 
 def check_truncated(tag, scene):
@@ -1418,6 +1528,53 @@ def device_profile(fn, reps):
             {k: round(v, 4) for k, v in top.items()}, reductions)
 
 
+def kernel_device_ms(fn, name, reps):
+    """torch.profiler's device ms of the CUDA kernel `name` per call of
+    fn(), over `reps` calls after one warm-up; None where the profiler
+    records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if name in e.key)
+    return us / 1e3 / reps if us > 0 else None
+
+
+def time_sweeps(scenes, card_line):
+    """K1's and K5b's times on each of `scenes`: device ms on the profiler
+    and CUDA-event ms (median of STEPS), beside the scene's busy runs."""
+    from dirt_tpu_torch.ops import forward_blocks as fb
+    th, tw, chunk = fb.TILE_H, fb.TILE_W, fb.CHUNK
+    for tag, (background, clip, colors, faces, _) in scenes.items():
+        batch, height, width, channels = background.shape
+        tiles_x = _cdiv(width, tw)
+        num_tiles = _cdiv(height, th) * tiles_x
+        geometry = (channels, height, width, tiles_x, num_tiles, th, tw)
+        table, starts, counts, block_ids, _ = fb.pack(
+            clip, colors, faces, height, width, th, tw, chunk)
+        slots = fb.pack_slots(clip, colors, faces, height, width, th, tw,
+                              chunk)[:4]
+        runs = {"raster_sweep": lambda: fb.raster_sweep(
+                    table, starts, counts, block_ids, *geometry),
+                "slot_sweep": lambda: fb.slot_sweep(*slots, batch,
+                                                    *geometry)}
+        times = []
+        for name, run in runs.items():
+            device = kernel_device_ms(run, f"{name}_kernel", PROFILE_STEPS)
+            device = "not measured" if device is None else f"{device:.4f}"
+            times.append(f"{name} {device} ms device, "
+                         f"{time_ms(run, STEPS):.4f} ms CUDA events")
+        busy = counts[counts > 0].float()
+        phase("timing", f"sweeps on {tag} ({int(busy.numel())} busy runs "
+              f"of {counts.numel()}, visits per busy run mean "
+              f"{float(busy.mean()):.2f}, max {int(busy.max())}): "
+              + "; ".join(times) + f" on {card_line}")
+
+
 def bound(nbytes, ops, peak_ops_per_ms=PEAK_OPS_PER_MS):
     """The least time (ms) the card could take, and what bounds it: the
     bytes over the memory rate, or the operations over `peak_ops_per_ms`
@@ -1458,12 +1615,14 @@ def main():
     scene = bench_scene(16, 256, 64, device)
     errors, calls, info = compare_kernels("bench 16x256^2x512f", scene)
     check_reduce_walk("bench 16x256^2x512f", calls, info)
+    check_sweep_walk("bench 16x256^2x512f", info)
     compare_kernels("100x100", bench_scene(4, 100, 64, device))
     crossing = crossing_scene(device)
     compare_kernels("camera-crossing", crossing)
     check_truncated("camera-crossing", crossing)
     large_scene = bench_scene(1, 256, 1024, device)
     compare_kernels("1x256^2x8192f", large_scene)
+    zoom_scene = bench_scene(16, 256, 64, device, right=0.05)
 
     # 4. Paths; each kernel's launches are those of the first path that
     # runs it (K1-K4 blocks, K7/K9 dense, K8 pallas, K10 mxu, K5b/K6
@@ -1492,7 +1651,16 @@ def main():
           f"chunk, pix): (lanes, ring depth, colour group, shared bytes) "
           + "; ".join(f"{key}: ({s.lanes}, {s.depth}, {s.group}, {s.smem})"
                       for key, s in REDUCE_LAUNCHES.items()))
-    from dirt_tpu_torch.ops import grad_dense, grad_mxu
+    from dirt_tpu_torch.ops import forward_blocks, grad_dense, grad_mxu
+    runs = info["sweep_visits"]
+    busy = runs[runs > 0].float()
+    sweep = forward_blocks.sweep_shape(
+        forward_blocks.TILE_H * forward_blocks.TILE_W, forward_blocks.CHUNK,
+        _cuda.shared_memory_optin(device))
+    phase("kernels", f"K1/K5b at the bench configuration: {busy.numel()} "
+          f"busy runs of {runs.numel()}, visits per busy run mean "
+          f"{float(busy.mean()):.2f}, max {int(busy.max())}; launch shape "
+          f"{sweep}")
     window = info["window_pixels"].float()
     phase("kernels", f"K9 at the bench configuration: window pixels per "
           f"live slot mean {float(window.mean()):.2f}, max "
@@ -1557,6 +1725,9 @@ def main():
               f"({bound_by}){all_planes}, library "
               f"{kernels[-1]['library_ms']} ms, {launches[name]} launches "
               f"on {card_line}")
+    time_sweeps({"bench 16x256^2x512f": scene,
+                 "zoom 16x256^2x512f": zoom_scene,
+                 "large 1x256^2x8192f": large_scene}, card_line)
     for name, ms in steps.items():
         phase("timing", f"{name} step fwd+bwd 16x256^2, 512 faces: median "
               f"{ms:.4f} ms/step over {STEPS} steps on {card_line}")

@@ -46,6 +46,8 @@
 
 #include <cuda_runtime.h>
 
+#include "async_copy.cuh"
+
 namespace dirt {
 
 // Plane indices of grad_dense.plane_layout (-1: not in the stack).
@@ -175,22 +177,6 @@ struct RunShape {
 constexpr int kVisitList = 1024;   // visit ids: at least a block's threads
 constexpr int kScratch = 64;       // ints: per-warp counts, total, lo, hi
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // Every thread issues its share of one visit's copies as one group.
 __device__ __forceinline__ void stage_tile(float* dst, const float* src,
                                            const RunShape& rs) {
@@ -203,7 +189,7 @@ __device__ __forceinline__ void stage_tile(float* dst, const float* src,
       cp_async4(dst + j, src + j);
     }
   }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  cp_async_commit();
 }
 
 // Adds the n visits of `list` (tile ids into planes, `stack` floats

@@ -7,7 +7,8 @@
 // Work: one thread block per (image, face block) -- a CSR run -- of chunk
 // x P threads, P pixel lanes per face.  The block copies its run's tile
 // ids (tile_ids[starts[r] .. starts[r] + counts[r]], ascending) into a
-// visit list in shared memory, then walks them with grad_math.cuh's
+// visit list in shared memory (slots.cuh's CsrFill, shared with K1
+// raster_sweep), then walks them with grad_math.cuh's
 // reduce_run (shared with K6 slot_grad_reduce; the per-pixel arithmetic
 // also with K9 dense_grad_reduce): a ring of two staged plane stacks fed
 // by cp.async, each lane adding its face's masked sums
@@ -44,27 +45,9 @@
 #include <cuda_runtime.h>
 
 #include "grad_math.cuh"
+#include "slots.cuh"
 
 namespace {
-
-// The run's visits: tile_ids[start .. start + count), kVisitList at a time.
-struct CsrFill {
-  const int* ids;
-  int count;
-  int cursor;
-
-  __device__ void reset() { cursor = 0; }
-  __device__ bool done() const { return cursor >= count; }
-  __device__ int next(int* list) {
-    const int m = min(dirt::kVisitList, count - cursor);
-    for (int j = threadIdx.x; j < m; j += blockDim.x) {
-      list[j] = ids[cursor + j];
-    }
-    cursor += m;
-    __syncthreads();
-    return m;
-  }
-};
 
 template <int G, int kMaxThreads>
 __global__ void __launch_bounds__(kMaxThreads) grad_reduce_kernel(
@@ -81,7 +64,8 @@ __global__ void __launch_bounds__(kMaxThreads) grad_reduce_kernel(
   const int f = threadIdx.x % chunk;
   const dirt::GradFace face = dirt::load_grad_face(
       table + ((long long)run * chunk + f) * width_d);
-  CsrFill fill{tile_ids + starts[run], counts[run], 0};
+  dirt::CsrFill fill{tile_ids + starts[run], counts[run], dirt::kVisitList,
+                     0};
   dirt::reduce_run<G>(fill, planes, (long long)n_planes * pix, pix, chunk,
                       shape, smem, face, layout, want_pos != 0, channels,
                       d_out, out + (long long)run * chunk * d_out);

@@ -16,7 +16,8 @@
 // compacts the live slots (slot_item >= 0; the others are a block's
 // mandatory slot without hits and the filler tail) into a visit list in
 // shared memory, keeping their order, their batch-folded tiles
-// (slot_dma) in pieces of at most kVisitList.  From there it is K3's walk
+// (slot_dma) in pieces of at most kVisitList (slots.cuh's SlotFill, shared
+// with K5b slot_sweep).  From there it is K3's walk
 // (grad_math.cuh's reduce_run): the same list, lanes, ring, colour groups
 // and lane combine, so the rows equal K3's bit for bit on the same tiles.
 // No atomics.  A run without a live slot writes zeros, which stand for the
@@ -46,53 +47,6 @@
 
 namespace {
 
-// The run's live slots in [lo, hi), compacted in order, one window of
-// blockDim.x slots at a time while the piece has room for a whole window.
-struct SlotFill {
-  const int* item;
-  const int* dma;
-  int lo;
-  int hi;
-  int* scratch;   // [32] per-warp counts, then offsets; [32] the total
-  int cursor;
-
-  __device__ void reset() { cursor = lo; }
-  __device__ bool done() const { return cursor >= hi; }
-  __device__ int next(int* list) {
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int in_warp = min(32, (int)blockDim.x - warp * 32);
-    const unsigned members = in_warp == 32 ? 0xffffffffu
-                                           : (1u << in_warp) - 1u;
-    int n = 0;
-    while (cursor < hi && n + (int)blockDim.x <= dirt::kVisitList) {
-      const int idx = cursor + threadIdx.x;
-      const bool live = idx < hi && item[idx] >= 0;
-      const int tile = live ? dma[idx] : 0;
-      const unsigned ballot = __ballot_sync(members, live);
-      if (lane == 0) scratch[warp] = __popc(ballot);
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        int total = 0;
-        for (int w = 0; w < ((int)blockDim.x + 31) >> 5; ++w) {
-          const int c = scratch[w];
-          scratch[w] = total;
-          total += c;
-        }
-        scratch[32] = total;
-      }
-      __syncthreads();
-      if (live) {
-        list[n + scratch[warp] + __popc(ballot & ((1u << lane) - 1u))] = tile;
-      }
-      n += scratch[32];
-      cursor += blockDim.x;
-      __syncthreads();
-    }
-    return n;
-  }
-};
-
 template <int G, int kMaxThreads>
 __global__ void __launch_bounds__(kMaxThreads) slot_grad_kernel(
     const float* __restrict__ table,     // [R, chunk, width_d]
@@ -116,7 +70,8 @@ __global__ void __launch_bounds__(kMaxThreads) slot_grad_kernel(
   const dirt::GradFace face = dirt::load_grad_face(
       table + ((long long)run * chunk + f) * width_d);
   __syncthreads();
-  SlotFill fill{slot_item, slot_dma, scratch[33], scratch[34], scratch, 0};
+  dirt::SlotFill fill{slot_item, slot_dma, scratch[33], scratch[34], scratch,
+                      dirt::kVisitList, 0};
   dirt::reduce_run<G>(fill, planes, (long long)n_planes * pix, pix, chunk,
                       shape, smem, face, layout, want_pos != 0, channels,
                       d_out, out + (long long)run * chunk * d_out);

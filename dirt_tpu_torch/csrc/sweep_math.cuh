@@ -1,9 +1,11 @@
 // The per-face arithmetic of the forward sweeps, shared by K1 raster_sweep
-// (raster_sweep.cu), K7 dense_sweep (dense_sweep.cu) and K8 pallas_raster
-// (pallas_raster.cu) so they cannot drift: one thread tests one face-table
-// row against its pixel centre and keeps the lexicographic (depth, original
-// face index) winner; K1 and K7 then write the packed per-pixel state of
-// forward_dense, K8 shades the winner itself.
+// (raster_sweep.cu), K5b slot_sweep (slot_sweep.cu), K5 resident_sweep
+// (resident_sweep.cu), K7 dense_sweep (dense_sweep.cu) and K8
+// pallas_raster (pallas_raster.cu) so they cannot drift: a thread tests a
+// face-table row against its pixel centre and keeps the lexicographic
+// (depth, original face index) winner; all but K8 then write the packed
+// per-pixel state of forward_dense, K8 shades the winner itself.  Below
+// them, the run walk of K1 and K5b (sweep_run).
 //
 // The arithmetic is forward_dense._chunk_candidates' expression tree for
 // one row: edge functions, the COVER_FAST fill rule with the
@@ -17,6 +19,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "async_copy.cuh"
 
 namespace dirt {
 
@@ -57,26 +61,6 @@ __device__ __forceinline__ void test_face(const float* f, float xg, float yg,
     w.e2 = e2;
     w.sw = s_w;
     w.row = row;
-  }
-}
-
-// Stages face block `bid` (chunk x width_d floats of `table`) in shared
-// memory `rows` and tests its rows in order at (xg, yg).  Every thread of
-// the block must call it (it synchronises); used by K1 raster_sweep and
-// K5b slot_sweep, which walk the same blocks in the same order.
-__device__ __forceinline__ void sweep_block(const float* table, long long bid,
-                                            int chunk, int width_d,
-                                            float* rows, float xg, float yg,
-                                            Winner& w) {
-  const int block_floats = chunk * width_d;
-  __syncthreads();
-  const float* src = table + bid * block_floats;
-  for (int j = threadIdx.x; j < block_floats; j += blockDim.x) {
-    rows[j] = src[j];
-  }
-  __syncthreads();
-  for (int k = 0; k < chunk; ++k) {
-    test_face(rows + k * width_d, xg, yg, bid * chunk + k, w);
   }
 }
 
@@ -129,6 +113,272 @@ __device__ __forceinline__ void write_state(const float* table, int width_d,
   }
   out[(channels + 7) * pix] = w.depth;
   out[(channels + 8) * pix] = w.orig;
+}
+
+// --------------------------------------------------------------------------
+// The run walk of K1 raster_sweep and K5b slot_sweep
+// --------------------------------------------------------------------------
+//
+// sweep_run is K1's and K5b's whole kernel body: the H100 form of
+// dirt_tpu/ops/forward_blocks.py's CSR and slot sweeps.  On the TPU a grid
+// step swept a whole tile on the vector unit and the time followed the
+// total work; here one block owns a run (a tile), and at the bench 96 of
+// 4,096 runs carry every visit, so the busiest run's dependent chain of
+// face tests sets the time and the empty runs only write their state.
+// The walk answers:
+//   * The visit list in shared memory: the caller's fill writes the run's
+//     visits (batch-folded face blocks) there before any face test (in
+//     pieces of at most `list` ids), so staging never waits on a dependent
+//     global load.
+//   * Staging without a barrier a visit: every visit's face rows -- only
+//     their first kFaceFloats columns, 96 bytes a face -- come in
+//     by cp.async (16 bytes a copy where the rows are 16-byte aligned,
+//     else 4), all of the piece at once where they fit the staging area
+//     (one wait and one barrier), else through two halves of it, each
+//     refilled while the other is tested (two barriers a half).
+//   * A busy run's faces over S x pix threads: S face groups of one
+//     thread a pixel, group g testing faces g, g + S, g + 2S, ... of every
+//     visit, each face loaded into registers by 16-byte shared loads.  So
+//     a thread's chain is 1/S of the run's faces.  (Two pixels a thread,
+//     sharing each face's loads, ran the busiest run faster but cost K5b
+//     the blocks an SM holds: PERF.md.)
+//   * A bbox cull: a face is tested only at the pixels its conservative
+//     pixel bbox (table columns 20-23, loaded first) holds, the premise
+//     the block hit test and the dense lists already rest on; a warp
+//     skips the face where none of its pixels is inside.  Of the 448
+//     faces the bench's busiest run visits, a warp's pixels meet 120 on
+//     average, so most faces cost one load and four compares.
+//   * A fixed-order combine: groups 1 .. S-1 leave their winners in shared
+//     memory (the staging area's space), group 0 takes them in group
+//     order by the same lexicographic (depth, original index) test and
+//     writes the state.  Among covered fragments of one image that order
+//     is total (the original index is unique), so every partition and
+//     every combine order picks the winner one thread walking the faces
+//     in order picks; the cull drops only faces whose bbox misses the
+//     pixel, never its winner; and the winner's E0..E2 and S_w are
+//     test_face's: the state is equal bit for bit.
+//   * A run without a visit writes the background with every thread of
+//     the block and retires.
+
+constexpr int kFaceFloats = 24;      // test_face's columns, then the bbox
+// The launch shape, chosen by trials at the bench (PERF.md): the
+// most S, a block's threads at most, and the blocks an SM must hold (the
+// launch bound's 40 registers a thread); forward_blocks.SWEEP_GROUPS,
+// SWEEP_THREADS and SWEEP_BLOCKS mirror them.
+constexpr int kSweepGroups = 2;
+constexpr int kSweepThreads = 512;
+constexpr int kSweepBlocks = 3;
+constexpr int kSweepScratch = 64;    // ints after the list (_SWEEP_SCRATCH)
+
+// The launch shape forward_blocks.sweep_shape computes, with the dynamic
+// shared memory it sizes: the staging area (region floats; the combine
+// reuses it), the visit list (list ints), then kSweepScratch ints.
+struct SweepShape {
+  int groups;   // S face groups of pix threads each
+  int cap;      // visits the staging area holds (at least 2)
+  int region;   // floats of the staging area, a multiple of 4
+  int list;     // ints of the visit list, at least the block's threads
+  int vec16;    // stage with 16-byte copies
+};
+
+// The background state [C+9, pix] of a tile: zeros, then depth 1.0 and
+// index -1; written by every thread of the block.
+__device__ __forceinline__ void write_background(float* out, int channels,
+                                                 int pix) {
+  const int ns = channels + 9;
+  if ((pix & 3) == 0) {
+    const int quads = pix >> 2;
+    for (int j = threadIdx.x; j < ns * quads; j += blockDim.x) {
+      const int k = j / quads;
+      const float v = k < channels + 7 ? 0.0f
+                                       : (k == channels + 7 ? 1.0f : -1.0f);
+      reinterpret_cast<float4*>(out)[j] = make_float4(v, v, v, v);
+    }
+  } else {
+    for (int j = threadIdx.x; j < ns * pix; j += blockDim.x) {
+      const int k = j / pix;
+      out[j] = k < channels + 7 ? 0.0f : (k == channels + 7 ? 1.0f : -1.0f);
+    }
+  }
+}
+
+// Stages the kFaceFloats leading columns of the face rows of visits
+// [v0, v1) of `list`, face after face, at dst; the thread's copies form
+// one commit group (empty when v0 == v1).
+__device__ __forceinline__ void stage_visits(float* dst, const float* table,
+                                             const int* list, int v0, int v1,
+                                             int chunk, int width_d,
+                                             bool vec16) {
+  const int faces = (v1 - v0) * chunk;
+  if (vec16) {
+    constexpr int kQuads = kFaceFloats / 4;
+    for (int j = threadIdx.x; j < faces * kQuads; j += blockDim.x) {
+      const int face = j / kQuads;
+      const int v = face / chunk;
+      const long long row =
+          (long long)list[v0 + v] * chunk + (face - v * chunk);
+      const int c = (j - face * kQuads) * 4;
+      cp_async16(dst + face * kFaceFloats + c, table + row * width_d + c);
+    }
+  } else {
+    for (int j = threadIdx.x; j < faces * kFaceFloats; j += blockDim.x) {
+      const int face = j / kFaceFloats;
+      const int v = face / chunk;
+      const long long row =
+          (long long)list[v0 + v] * chunk + (face - v * chunk);
+      cp_async4(dst + j, table + row * width_d + (j - face * kFaceFloats));
+    }
+  }
+  cp_async_commit();
+}
+
+// The thread's pixel: its centre (xg, yg) in NDC, and the row and column
+// the bbox cull compares, clamped to the image (a face's bbox is, so a
+// pixel past the edge meets the bbox of every face that can cover it).
+struct Pixel {
+  float xg, yg, row, col;
+};
+
+// Tests the staged face at `face` (row number `row` of the table) at the
+// thread's pixel if its pixel bbox holds the pixel; the face's other
+// columns are loaded only then.
+__device__ __forceinline__ void test_staged(const float* face, long long row,
+                                            const Pixel& px, Winner& w) {
+  const float4* src = reinterpret_cast<const float4*>(face);
+  const float4 box = src[kFaceFloats / 4 - 1];   // r0, r1, c0, c1
+  if (!(box.x <= px.row && px.row <= box.y && box.z <= px.col &&
+        px.col <= box.w)) {
+    return;
+  }
+  float f[kFaceFloats - 4];
+#pragma unroll
+  for (int q = 0; q < kFaceFloats / 4 - 1; ++q) {
+    const float4 v = src[q];
+    f[4 * q + 0] = v.x;
+    f[4 * q + 1] = v.y;
+    f[4 * q + 2] = v.z;
+    f[4 * q + 3] = v.w;
+  }
+  test_face(f, px.xg, px.yg, row, w);
+}
+
+// Tests group g's faces of the n visits of `list` at the thread's pixel,
+// staged through `stage`.  Every thread calls it with the same n; it ends
+// with a barrier, so the list and the staging area may be rewritten after
+// it.
+__device__ __forceinline__ void sweep_visits(
+    const float* table, const int* list, int n, int chunk, int width_d,
+    float* stage, const SweepShape& ss, int g, const Pixel& px, Winner& w) {
+  if (n == 0) return;
+  const int per = chunk * kFaceFloats;
+  const bool ring = n > ss.cap;
+  const int batch = ring ? ss.cap / 2 : n;
+  stage_visits(stage, table, list, 0, batch, chunk, width_d, ss.vec16);
+  if (ring) {
+    stage_visits(stage + batch * per, table, list, batch, 2 * batch, chunk,
+                 width_d, ss.vec16);
+  }
+  int half = 0;
+  for (int b0 = 0; b0 < n; b0 += batch) {
+    // This batch has landed (the other half may still be in flight).
+    if (ring) {
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* rows = stage + half * batch * per;
+    const int m = min(batch, n - b0);
+    for (int v = 0; v < m; ++v) {
+      const long long base = (long long)list[b0 + v] * chunk;
+      const float* vr = rows + v * per;
+      for (int k = g; k < chunk; k += ss.groups) {
+        test_staged(vr + k * kFaceFloats, base + k, px, w);
+      }
+    }
+    if (ring) {
+      // Every thread is done with this half: batch b0 + 2 * batch goes in.
+      __syncthreads();
+      const int v0 = min(b0 + 2 * batch, n);
+      stage_visits(stage + half * batch * per, table, list, v0,
+                   min(v0 + batch, n), chunk, width_d, ss.vec16);
+      half ^= 1;
+    }
+  }
+  __syncthreads();
+}
+
+// Groups 1 .. S-1 leave their winners (7 words a pixel) in `buf`; group 0
+// takes them into its own in group order.  Ends with group 0 holding the
+// tile's winners.
+__device__ __forceinline__ void combine_groups(Winner& w, float* buf, int g,
+                                               int p, int pix, int groups) {
+  const int slots = (groups - 1) * pix;
+  int* rows = reinterpret_cast<int*>(buf + 6 * slots);
+  if (g > 0) {
+    const int e = (g - 1) * pix + p;
+    buf[e] = w.depth;
+    buf[slots + e] = w.orig;
+    buf[2 * slots + e] = w.e0;
+    buf[3 * slots + e] = w.e1;
+    buf[4 * slots + e] = w.e2;
+    buf[5 * slots + e] = w.sw;
+    rows[e] = (int)w.row;
+  }
+  __syncthreads();
+  if (g > 0) return;
+  for (int h = 1; h < groups; ++h) {
+    const int e = (h - 1) * pix + p;
+    const float depth = buf[e];
+    const float orig = buf[slots + e];
+    if (depth < w.depth || (depth == w.depth && orig < w.orig)) {
+      w.depth = depth;
+      w.orig = orig;
+      w.e0 = buf[2 * slots + e];
+      w.e1 = buf[3 * slots + e];
+      w.e2 = buf[4 * slots + e];
+      w.sw = buf[5 * slots + e];
+      w.row = rows[e];
+    }
+  }
+}
+
+// Sweeps one run, the tile whose first pixel is (row0, col0) of a height
+// x width image, into its state `out` [C+9, pix].  `fill` supplies the
+// run's visits: fill.reset() rewinds it, fill.next(list) writes the next
+// piece (ending with a barrier) and returns its length, fill.done() says
+// whether the run is exhausted; all three are block-uniform.  A block is
+// ss.groups x pix threads, and every thread must call it.
+template <typename Fill>
+__device__ __forceinline__ void sweep_run(
+    Fill& fill, const float* table, int chunk, int width_d, int channels,
+    const SweepShape& ss, float* smem, int row0, int col0, int tile_w,
+    int pix, int height, int width, float sx, float sy, float* out) {
+  float* stage = smem;
+  int* list = reinterpret_cast<int*>(smem + ss.region);
+  fill.reset();
+  int n = fill.next(list);
+  if (n == 0 && fill.done()) {
+    write_background(out, channels, pix);
+    return;
+  }
+  const int g = threadIdx.x / pix;
+  const int p = threadIdx.x - g * pix;
+  const int row = row0 + p / tile_w;
+  const int col = col0 + p % tile_w;
+  // forward_dense.pixel_ndc: ((col + 0.5) * (2/W) - 1,
+  // 1 - (row + 0.5) * (2/H)).
+  const Pixel px{((float)col + 0.5f) * sx - 1.0f,
+                 1.0f - ((float)row + 0.5f) * sy,
+                 (float)min(row, height - 1), (float)min(col, width - 1)};
+  Winner w;
+  for (;;) {
+    sweep_visits(table, list, n, chunk, width_d, stage, ss, g, px, w);
+    if (fill.done()) break;
+    n = fill.next(list);
+  }
+  combine_groups(w, stage, g, p, pix, ss.groups);
+  if (g == 0) write_state(table, width_d, channels, w, out + p, pix);
 }
 
 }  // namespace dirt

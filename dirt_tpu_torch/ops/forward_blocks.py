@@ -47,6 +47,8 @@ GPU shape for every schedule (16x16-pixel tiles, one thread per pixel;
 compare with it bitwise.
 """
 
+import collections
+import functools
 import math
 import os
 
@@ -331,9 +333,90 @@ def hit_matrix(face_data, bbox_cols, num_blocks, chunk,
 
 RASTER_SWEEP = _cuda.Kernel(
     "raster_sweep", "dirt_raster_sweep",
-    [_cuda.ptr] * 5 + [_cuda.i32] * 8 + [_cuda.f32] * 2 + [_cuda.ptr],
+    [_cuda.ptr] * 5 + [_cuda.i32] * 8 + [_cuda.f32] * 2 + [_cuda.i32] * 8
+    + [_cuda.ptr],
     replaces="dirt_tpu/ops/forward_blocks.py:576",
     source="raster_sweep.cu")
+
+# The run walk of K1 and K5b (sweep_math.cuh's sweep_run): a block is S
+# face groups of one thread a pixel; S is the largest power of two up to
+# SWEEP_GROUPS that keeps the block within SWEEP_THREADS, and the kernels'
+# launch bound holds SWEEP_BLOCKS such blocks on an SM (a bigger tile
+# takes one group, up to 1024 threads).  A face stages FACE_FLOATS
+# floats.  The constants mirror the kernels' kSweepGroups, kSweepThreads,
+# kSweepBlocks, kFaceFloats and kSweepScratch.
+SWEEP_GROUPS = 2
+SWEEP_THREADS = 512
+SWEEP_BLOCKS = 3
+FACE_FLOATS = 24
+_SWEEP_SCRATCH = 64
+# K5b's search reads a window of SLOT_WINDOW slots into the visit list
+# (slots.cuh's kWindow), so the list holds at least that many.
+SLOT_WINDOW = 96
+# Shared memory of one H100 SM (cudaDevAttrMaxSharedMemoryPerMultiprocessor)
+# and the threads it holds: a block's staging takes the share of its
+# threads, so shared memory does not cut the blocks an SM runs at once.
+SM_SHARED_BYTES = 233472
+SM_THREADS = 2048
+
+SweepShape = collections.namedtuple(
+    "SweepShape", "groups threads cap region list smem")
+
+
+@functools.lru_cache(maxsize=None)
+def sweep_shape(pix, chunk, optin):
+    """The SweepShape of a K1 or K5b launch on tiles of `pix` pixels and
+    `chunk`-face blocks, under `optin` bytes of shared memory a block:
+      groups   S face groups, the largest power of two <= SWEEP_GROUPS
+               with S * pix <= SWEEP_THREADS, else 1 (a tile of more
+               than SWEEP_THREADS pixels takes the kernels' 1024-thread
+               instantiation);
+      threads  the block's threads, S * pix;
+      cap      visits the staging area holds: the block's share of an
+               SM's shared memory (threads / SM_THREADS of it, less the
+               1 KB the SM reserves a block), less the list and scratch,
+               over chunk * FACE_FLOATS floats a visit, at least 2;
+      region   floats of the staging area, which the group combine reuses
+               for (S - 1) * pix winners of 7 words;
+      list     ints of the visit list: the threads (K5b's compaction
+               takes a window of one slot a thread), at least SLOT_WINDOW;
+      smem     bytes of dynamic shared memory: region, list, scratch.
+    Raises where the tile exceeds 1024 pixels, the block holds fewer
+    than one warp, or the shape exceeds `optin`."""
+    if pix > 1024:
+        raise ValueError(f"the sweep runs one thread a pixel: a {pix}-pixel "
+                         f"tile exceeds a block's 1024 threads")
+    groups = SWEEP_GROUPS
+    while groups > 1 and groups * pix > SWEEP_THREADS:
+        groups //= 2
+    threads = groups * pix
+    if threads < 32:
+        raise ValueError(f"a {pix}-pixel tile gives a block of {threads} "
+                         f"threads, under one warp")
+    visit = chunk * FACE_FLOATS
+    budget = SM_SHARED_BYTES * threads // SM_THREADS - 1024
+    listed = max(threads, SLOT_WINDOW)
+    cap = max(2, (budget // 4 - listed - _SWEEP_SCRATCH) // visit)
+    combine = (groups - 1) * pix * 7
+    region = _cdiv(max(cap * visit, combine), 4) * 4
+    smem = 4 * (region + listed + _SWEEP_SCRATCH)
+    if smem > optin:
+        raise ValueError(f"two visits of {chunk} faces exceed the "
+                         f"{optin}-byte shared memory of a block")
+    return SweepShape(groups, threads, cap, region, listed, smem)
+
+
+def _sweep_args(face_table, pix):
+    """sweep_shape's arguments of K1's and K5b's C entry points: groups,
+    cap, region, list, whether the face rows take 16-byte copies (the
+    table 16-byte aligned, rows of a multiple of 4 floats), and the
+    shared memory's bytes."""
+    if face_table.shape[0] * face_table.shape[1] >= 2 ** 31:
+        raise ValueError("the sweep numbers face-table rows in int32")
+    s = sweep_shape(pix, face_table.shape[1],
+                    _cuda.shared_memory_optin(face_table.device))
+    vec16 = face_table.data_ptr() % 16 == 0 and face_table.shape[2] % 4 == 0
+    return [s.groups, s.cap, s.region, s.list, int(vec16), s.smem]
 
 def raster_sweep_plain(face_table, starts, counts, block_ids, channels,
                        height, width, tiles_x, num_tiles, tile_h, tile_w):
@@ -364,9 +447,7 @@ def raster_sweep(face_table, starts, counts, block_ids, channels,
     runs = starts.shape[0]
     chunk, width_d = face_table.shape[1], face_table.shape[2]
     pix = tile_h * tile_w
-    if pix > 1024:
-        raise ValueError(f"raster_sweep runs one thread per pixel: a "
-                         f"{tile_h}x{tile_w} tile exceeds 1024 threads")
+    shape = _sweep_args(face_table, pix)
     state = torch.empty(runs, channels + 9, pix, device=face_table.device)
     RASTER_SWEEP(
         _cuda.check("face_table", face_table, torch.float32),
@@ -375,7 +456,7 @@ def raster_sweep(face_table, starts, counts, block_ids, channels,
         _cuda.check("block_ids", block_ids, torch.int32),
         _cuda.check("state", state, torch.float32),
         runs, num_tiles, tiles_x, tile_h, tile_w, chunk, width_d, channels,
-        2.0 / width, 2.0 / height, _cuda.stream())
+        2.0 / width, 2.0 / height, height, width, *shape, _cuda.stream())
     return state
 
 
@@ -446,7 +527,8 @@ def resident_sweep(face_table, starts, counts, block_ids, channels,
 
 SLOT_SWEEP = _cuda.Kernel(
     "slot_sweep", "dirt_slot_sweep",
-    [_cuda.ptr] * 5 + [_cuda.i32] * 9 + [_cuda.f32] * 2 + [_cuda.ptr],
+    [_cuda.ptr] * 5 + [_cuda.i32] * 9 + [_cuda.f32] * 2 + [_cuda.i32] * 8
+    + [_cuda.ptr],
     replaces="dirt_tpu/ops/forward_blocks.py:445", source="slot_sweep.cu")
 
 
@@ -479,9 +561,7 @@ def slot_sweep(face_table, slot_tile, slot_block, slot_dma, batch, channels,
     slots = slot_tile.shape[0]
     chunk, width_d = face_table.shape[1], face_table.shape[2]
     pix = tile_h * tile_w
-    if pix > 1024:
-        raise ValueError(f"slot_sweep runs one thread per pixel: a "
-                         f"{tile_h}x{tile_w} tile exceeds 1024 threads")
+    shape = _sweep_args(face_table, pix)
     state = torch.empty(runs, channels + 9, pix, device=face_table.device)
     SLOT_SWEEP(
         _cuda.check("face_table", face_table, torch.float32),
@@ -490,7 +570,8 @@ def slot_sweep(face_table, slot_tile, slot_block, slot_dma, batch, channels,
         _cuda.check("slot_dma", slot_dma, torch.int32, (slots,)),
         _cuda.check("state", state, torch.float32),
         runs, slots, num_tiles, tiles_x, tile_h, tile_w, chunk, width_d,
-        channels, 2.0 / width, 2.0 / height, _cuda.stream())
+        channels, 2.0 / width, 2.0 / height, height, width, *shape,
+        _cuda.stream())
     return state
 
 

@@ -7,7 +7,9 @@ elsewhere.  On the card, run them without the JAX test configuration:
 
 The checks are chip_smoke.py's, at small shapes: the hit plane, the
 sweeps' states (the slot sweep K5b's and the resident sweep K5's also
-equal to K1's), the fused sweep-and-shade outputs and the plane stack
+equal to K1's; K1 and K5b also on runs of 0, 1, 121 and more visits than
+their visit list, on exact depth ties, each equal to itself in two
+calls), the fused sweep-and-shade outputs and the plane stack
 (also with the diagonal dilation) bitwise, the reductions' rows within
 1e-5 (normalised; the slot reduction K6's equal to K3's; K9 also at
 windows clipped by the tile edges, K10 over several chunks a band, each
@@ -376,6 +378,45 @@ def test_slot_and_resident_sweeps_equal_k1(device, channels):
     slot_args = (*slots[:4], 2, channels, h, w, tiles_x, num_tiles, 16, 16)
     assert torch.equal(forward_blocks.slot_sweep(*slot_args), k1)
     assert torch.equal(forward_blocks.slot_sweep_plain(*slot_args), k1)
+
+
+def test_sweep_edge_runs(device):
+    # Runs of 1, 121 (more than the staging area holds) and list + 100
+    # visits (more than the visit list holds) and of none: K1 and K5b ==
+    # their plain versions, K5b == K1.
+    scene = chip_smoke.bench_scene(2, 64, 16, device)
+    _, info = chip_smoke.kernel_inputs(scene)
+    chip_smoke.check_sweep_walk("edge", info)
+
+
+@pytest.mark.parametrize("scene", ["ties", "crossing", "bench"])
+def test_sweeps_twice_and_against_each_other(device, scene):
+    # Exact depth ties (every face twice, the lower index wins), the
+    # camera-crossing soup and the bench cylinder: K1, K5b and K5 each ==
+    # the plain state, == K1, and == themselves in a second call.
+    from dirt_tpu_torch.ops import forward_blocks
+    bg, v, c, f = {
+        "ties": lambda: chip_smoke.tie_scene(device),
+        "crossing": lambda: chip_smoke.crossing_scene(device, size=48,
+                                                      num_faces=60)[:4],
+        "bench": lambda: chip_smoke.bench_scene(4, 64, 16, device)[:4],
+    }[scene]()
+    batch, h, w, channels = bg.shape
+    tiles_x, num_tiles = -(-w // 16), -(-h // 16) * -(-w // 16)
+    table, starts, counts, ids, _ = forward_blocks.pack(v, c, f, h, w, 16,
+                                                        16, 32)
+    args = (table, starts, counts, ids, channels, h, w, tiles_x, num_tiles,
+            16, 16)
+    slot_args = (*forward_blocks.pack_slots(v, c, f, h, w, 16, 16, 32)[:4],
+                 batch, channels, h, w, tiles_x, num_tiles, 16, 16)
+    want = forward_blocks.raster_sweep_plain(*args)
+    assert bool((want[:, -1] >= 0).any())
+    for run in (lambda: forward_blocks.raster_sweep(*args),
+                lambda: forward_blocks.slot_sweep(*slot_args),
+                lambda: forward_blocks.resident_sweep(*args)):
+        first, second = run(), run()
+        assert torch.equal(first, want)
+        assert torch.equal(second, first)
 
 
 @pytest.mark.parametrize("tile,chunk", [
