@@ -4,6 +4,7 @@
 Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --sweeps-of OTHER_CHECKOUT   # phase 5's sweeps only
 
 It drives the port's paths on the bench scene (16 x 256^2, the 512-face
 Gouraud cylinder, loss sum(pixels * weights)) and checks them phase by
@@ -32,7 +33,14 @@ failure:
      run's rows zero; K1 and K5b each give equal states in two calls on
      every scene, and on runs of 0, 1, 121 and more visits than their
      visit list (the staging's two halves, several pieces) K1 and K5b ==
-     their plain versions bit for bit and K5b == K1;
+     their plain versions bit for bit and K5b == K1; K8 and K5 each give
+     equal results in two calls; on the 8192-face image K8 on lists of 0,
+     1, 301 and 3,728 faces (more than its visit list and its staging
+     area hold) == its plain version bit for bit, the unlisted tiles
+     background; K5 == its plain version == K1 bit for bit with every
+     count zeroed (every group empty), on the zoom scene and on a
+     1,536-face scene (16 x 256^2, whose table nears a block's shared
+     memory);
   4. paths, each with every launch counter reset just before and read just
      after, failing if a kernel of the path was not launched:
      a. blocks (the default): rasterise_batch forward + backward; image 0
@@ -80,11 +88,14 @@ failure:
      bytes);
   5. timing (CUDA events, median of 25): each path's step, with its device
      time per step, busy share, largest device items and the reductions'
-     (K3/K6, K9, K10) device time from torch.profiler; K1 and K5b on the
-     bench scene, the large one and a timing-only "zoom" scene (the bench
-     with the projection's half-width 0.05 for 0.25: many busy tiles),
-     profiler device ms and CUDA-event ms; each kernel
-     against its plain version, its bound (for
+     (K3/K6, K9, K10) device time from torch.profiler; the forward sweeps
+     on the bench scene, a timing-only "zoom" scene (the bench with the
+     projection's half-width 0.05 for 0.25: many busy tiles) and the
+     large one (K1, K5b, K7, K8; K5 on the bench, zoom and 1,536-face
+     scenes), profiler device ms and CUDA-event ms; each kernel, by
+     CUDA-event ms and by the profiler's device ms of its CUDA kernel (a
+     kernel the profiler does not see fails the run), against its plain
+     version, its bound (for
      K3 and K6 the planes of the tiles their runs visit, for K9 of the
      pixels in its windows, each once, with the bound from the whole
      image's planes beside it; for K10 the products of the mask's
@@ -647,7 +658,9 @@ def compare_kernels(tag, scene):
         if not torch.equal(states[name], states["raster_sweep"]):
             fail(f"{tag}: {name} state differs from raster_sweep's (max "
                  f"{_max_abs(states[name], states['raster_sweep'])})")
-    for name in ("raster_sweep", "slot_sweep"):
+    for name in ("raster_sweep", "slot_sweep", "resident_sweep"):
+        if name not in calls:
+            continue
         again = calls[name][0]()
         torch.cuda.synchronize()
         if not torch.equal(again, states[name]):
@@ -655,13 +668,16 @@ def compare_kernels(tag, scene):
                  f"{_max_abs(again, states[name])})")
 
     outs_k, outs_p = (f() for f in calls["pallas_raster"])
+    again = calls["pallas_raster"][0]()
     torch.cuda.synchronize()
-    for what, k, p in zip(("pixels", "face index", "vertex ids",
-                           "barycentrics", "clip w"), outs_k, outs_p,
-                          strict=True):
+    for what, k, p, a in zip(("pixels", "face index", "vertex ids",
+                              "barycentrics", "clip w"), outs_k, outs_p,
+                             again, strict=True):
         if not torch.equal(k, p):
             fail(f"{tag}: pallas_raster {what} differ from its plain version "
                  f"(max {_max_abs(k, p)})")
+        if not torch.equal(a, k):
+            fail(f"{tag}: pallas_raster {what} differ between two calls")
     if not torch.equal(outs_k[0], finalized["dense_sweep"]):
         fail(f"{tag}: pallas_raster pixels differ from dense_sweep's after "
              f"finalize")
@@ -699,17 +715,18 @@ def compare_kernels(tag, scene):
     if not torch.equal(rows["slot_grad_reduce"], rows["grad_reduce"]):
         fail(f"{tag}: slot_grad_reduce rows differ from grad_reduce's (max "
              f"{_max_abs(rows['slot_grad_reduce'], rows['grad_reduce'])})")
-    resident = ("K5 resident_sweep == (state, pixels; state == K1's)"
-                if "resident_sweep" in calls else
+    resident = ("K5 resident_sweep == (state, pixels; state == K1's; == "
+                "in two calls)" if "resident_sweep" in calls else
                 "K5 not run (the image's table exceeds a block's shared "
                 "memory)")
     phase("kernels", f"{tag}: K4 hit_plane ==, K1 raster_sweep == (and "
           f"== in two calls), K5b slot_sweep == (state, pixels; state == "
           f"K1's; == in two calls), {resident}, K7 "
           f"dense_sweep == (state, pixels), K8 pallas_raster == (pixels, "
-          f"aux; pixels == K7's), K2 grad_prepass == (also with the "
-          f"diagonal attempts; dilated pixels {dilated}), K3 grad_reduce rel "
-          f"{rel['grad_reduce']:.2e}, K6 slot_grad_reduce rel "
+          f"aux; pixels == K7's; == in two calls), K2 grad_prepass == (also "
+          f"with the "
+          f"diagonal attempts; dilated pixels {dilated}), K3 grad_reduce "
+          f"rel {rel['grad_reduce']:.2e}, K6 slot_grad_reduce rel "
           f"{rel['slot_grad_reduce']:.2e} (rows == K3's), K9 "
           f"dense_grad_reduce rel {rel['dense_grad_reduce']:.2e}, K10 "
           f"mxu_grad rel {rel['mxu_grad']:.2e} OK")
@@ -860,6 +877,106 @@ def check_sweep_walk(tag, info):
     phase("kernels", f"{tag}: K1 and K5b on runs of {lengths} visits and "
           f"{empty} of none: == their plain versions, K5b == K1, empty "
           f"runs background OK")
+
+
+def check_list_walk(tag, scene, lengths=(3728, 301, 1)):
+    """K8 on the run walk: image 0's three busiest tiles of `scene` (the
+    dense packing) take lists of `lengths` faces, each the first entries
+    of its own list (hits first; at most the slots), every other tile
+    none.  K8's five outputs == its plain version's bit for bit and ==
+    themselves in a second call; the tiles without a list are
+    background.  Returns the lengths."""
+    from dirt_tpu_torch.ops import (_cuda, forward_blocks as fb,
+                                    forward_dense, forward_pallas)
+    background, clip, colors, faces, _ = scene
+    batch, height, width, _ = background.shape
+    th, tw = forward_dense.tile_shape(height, width)
+    chunk = forward_dense.CHUNK
+    tiles_x = _cdiv(width, tw)
+    num_tiles = _cdiv(height, th) * tiles_x
+    table, face_ids, counts, _ = forward_dense.pack(
+        clip, colors, faces, height, width, th, tw, chunk)
+    tiles = torch.argsort(counts[:num_tiles], descending=True,
+                          stable=True)[:len(lengths)].tolist()
+    edge = torch.zeros_like(counts)
+    for tile, n in zip(tiles, lengths):
+        edge[tile] = min(n, face_ids.shape[1])
+    args = (table, face_ids, edge, background, tiles_x, num_tiles, th, tw,
+            chunk)
+    got = forward_pallas.pallas_raster(*args)
+    again = forward_pallas.pallas_raster(*args)
+    want = forward_pallas.pallas_raster_plain(*args)
+    torch.cuda.synchronize()
+    for what, k, a, p in zip(("pixels", "face index", "vertex ids",
+                              "barycentrics", "clip w"), got, again, want,
+                             strict=True):
+        if not (torch.equal(k, p) and torch.equal(a, k)):
+            fail(f"{tag}: on lists of {edge[tiles].tolist()} faces "
+                 f"pallas_raster {what} differ from its plain version (max "
+                 f"{_max_abs(k, p)}) or between two calls")
+    rows = torch.arange(height, device=edge.device)[:, None] // th
+    cols = torch.arange(width, device=edge.device)[None, :] // tw
+    unlisted = edge[:num_tiles][rows * tiles_x + cols] == 0
+    index = got[1]
+    if not (bool((index[0][unlisted] == -1).all())
+            and bool((index[1:] == -1).all())
+            and bool((index[0][~unlisted] >= 0).any())):
+        fail(f"{tag}: the tiles without a list are not background, or the "
+             f"listed tiles cover nothing")
+    shape = fb.sweep_shape(th * tw, 1, _cuda.shared_memory_optin(
+        table.device))
+    listed = edge[tiles].tolist()
+    phase("kernels", f"{tag}: K8 pallas_raster on lists of {listed} faces "
+          f"and 0 (a visit list of {shape.list}, staging for {shape.cap}): "
+          f"== its plain version bit for bit and in two calls, unlisted "
+          f"tiles background OK")
+    return listed
+
+
+def check_resident_walk(scenes):
+    """K5 on the run walk: on each of `scenes` ({tag: scene}) and on the
+    first with every count zeroed (every group empty), K5's state == its
+    plain version's == K1's bit for bit, and == itself in a second
+    call."""
+    from dirt_tpu_torch.ops import forward_blocks as fb
+    th, tw, chunk = fb.TILE_H, fb.TILE_W, fb.CHUNK
+    cases = {}
+    for tag, (background, clip, colors, faces, _) in scenes.items():
+        batch, height, width, channels = background.shape
+        tiles_x = _cdiv(width, tw)
+        num_tiles = _cdiv(height, th) * tiles_x
+        table, starts, counts, block_ids, _ = fb.pack(
+            clip, colors, faces, height, width, th, tw, chunk)
+        geometry = (channels, height, width, tiles_x, num_tiles, th, tw)
+        if not cases:
+            cases[f"{tag}, every group empty"] = (
+                table, starts, torch.zeros_like(counts), block_ids,
+                *geometry)
+        cases[tag] = (table, starts, counts, block_ids, *geometry)
+    busy = {}
+    for tag, args in cases.items():
+        k5, again = fb.resident_sweep(*args), fb.resident_sweep(*args)
+        k1, plain = fb.raster_sweep(*args), fb.resident_sweep_plain(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(k5, plain) and torch.equal(k5, k1)
+                and torch.equal(again, k5)):
+            fail(f"{tag}: resident_sweep differs from its plain version, "
+                 f"from raster_sweep's or between two calls (max "
+                 f"{_max_abs(k5, plain)})")
+        counts, num_tiles = args[2], args[8]
+        groups = _cdiv(num_tiles, fb.RESIDENT_TILES)
+        padded = torch.zeros(counts.numel() // num_tiles,
+                             groups * fb.RESIDENT_TILES,
+                             dtype=torch.int32, device=counts.device)
+        padded[:, :num_tiles] = counts.reshape(-1, num_tiles)
+        live = (padded.reshape(-1, fb.RESIDENT_TILES) > 0).sum(-1)
+        busy[tag] = (int((live > 0).sum()), live.numel(), int(live.max()),
+                     int(counts.max()))
+    phase("kernels", f"K5 resident_sweep, {fb.RESIDENT_TILES} tile(s) a "
+          f"block; (live groups, groups, most busy tiles in a group, most "
+          f"visits in a run): " + "; ".join(
+              f"{tag} {v}" for tag, v in busy.items())
+          + ": == its plain version and K1 bit for bit, == in two calls OK")
 
 
 def check_truncated(tag, scene):
@@ -1491,10 +1608,28 @@ def time_ms(fn, reps):
     return statistics.median(times)
 
 
-# The reductions' CUDA kernels by the names the profiler shows.
-REDUCTION_KERNELS = {"K3/K6": ("grad_reduce_kernel", "slot_grad_kernel"),
-                     "K9": ("dense_grad_kernel",),
-                     "K10": ("mxu_grad_kernel",)}
+
+
+# Each kernel's CUDA kernel by the name the profiler shows (a substring
+# of its key: the instantiations carry template arguments), and the
+# reductions' among them.
+DEVICE_KERNELS = {
+    "hit_plane": "hit_plane_kernel", "raster_sweep": "raster_sweep_kernel",
+    "slot_sweep": "slot_sweep_kernel",
+    "resident_sweep": "resident_sweep_kernel",
+    "dense_sweep": "dense_sweep_kernel",
+    "grad_prepass": "grad_prepass_kernel",
+    "grad_reduce": "grad_reduce_kernel",
+    "slot_grad_reduce": "slot_grad_kernel",
+    "dense_grad_reduce": "dense_grad_kernel",
+    "pallas_raster": "pallas_raster_kernel", "mxu_grad": "mxu_grad_kernel",
+    "scalar_accum": "scalar_accum_kernel",
+}
+REDUCTION_KERNELS = {
+    "K3/K6": (DEVICE_KERNELS["grad_reduce"],
+              DEVICE_KERNELS["slot_grad_reduce"]),
+    "K9": (DEVICE_KERNELS["dense_grad_reduce"],),
+    "K10": (DEVICE_KERNELS["mxu_grad"],)}
 
 
 def device_profile(fn, reps):
@@ -1544,35 +1679,98 @@ def kernel_device_ms(fn, name, reps):
     return us / 1e3 / reps if us > 0 else None
 
 
+def device_time(fn, name):
+    """kernel_device_ms of kernel `name` (DEVICE_KERNELS) per call of
+    fn(), over PROFILE_STEPS calls; fails where the profiler sees none."""
+    ms = kernel_device_ms(fn, DEVICE_KERNELS[name], PROFILE_STEPS)
+    if ms is None:
+        fail(f"the profiler saw no device time of {name}")
+    return ms
+
+
 def time_sweeps(scenes, card_line):
-    """K1's and K5b's times on each of `scenes`: device ms on the profiler
-    and CUDA-event ms (median of STEPS), beside the scene's busy runs."""
-    from dirt_tpu_torch.ops import forward_blocks as fb
+    """The forward sweeps' times on each of `scenes` ({tag: (scene,
+    kernels)}): device ms on the profiler and CUDA-event ms (median of
+    STEPS) of each kernel named, beside the scene's busy runs (K1's
+    blocks) and busy lists (K7's and K8's)."""
+    from dirt_tpu_torch.ops import (forward_blocks as fb, forward_dense,
+                                    forward_pallas)
     th, tw, chunk = fb.TILE_H, fb.TILE_W, fb.CHUNK
-    for tag, (background, clip, colors, faces, _) in scenes.items():
+    for tag, ((background, clip, colors, faces, _), names) in scenes.items():
         batch, height, width, channels = background.shape
         tiles_x = _cdiv(width, tw)
         num_tiles = _cdiv(height, th) * tiles_x
         geometry = (channels, height, width, tiles_x, num_tiles, th, tw)
         table, starts, counts, block_ids, _ = fb.pack(
             clip, colors, faces, height, width, th, tw, chunk)
+        csr = (table, starts, counts, block_ids, *geometry)
         slots = fb.pack_slots(clip, colors, faces, height, width, th, tw,
                               chunk)[:4]
-        runs = {"raster_sweep": lambda: fb.raster_sweep(
-                    table, starts, counts, block_ids, *geometry),
+        dth, dtw = forward_dense.tile_shape(height, width)
+        dtiles_x = _cdiv(width, dtw)
+        dnum_tiles = _cdiv(height, dth) * dtiles_x
+        dtable, face_ids, dcounts, _ = forward_dense.pack(
+            clip, colors, faces, height, width, dth, dtw,
+            forward_dense.CHUNK)
+        lists = (dtable, face_ids, dcounts)
+        dense = (channels, height, width, dtiles_x, dnum_tiles, dth, dtw,
+                 forward_dense.CHUNK)
+        pallas = (background, dtiles_x, dnum_tiles, dth, dtw,
+                  forward_dense.CHUNK)
+        runs = {"raster_sweep": lambda: fb.raster_sweep(*csr),
                 "slot_sweep": lambda: fb.slot_sweep(*slots, batch,
-                                                    *geometry)}
-        times = []
-        for name, run in runs.items():
-            device = kernel_device_ms(run, f"{name}_kernel", PROFILE_STEPS)
-            device = "not measured" if device is None else f"{device:.4f}"
-            times.append(f"{name} {device} ms device, "
-                         f"{time_ms(run, STEPS):.4f} ms CUDA events")
+                                                    *geometry),
+                "resident_sweep": lambda: fb.resident_sweep(*csr),
+                "dense_sweep": lambda: forward_dense.dense_sweep(*lists,
+                                                                 *dense),
+                "pallas_raster": lambda: forward_pallas.pallas_raster(
+                    *lists, *pallas)}
+        times = [f"{name} {device_time(runs[name], name):.4f} ms device, "
+                 f"{time_ms(runs[name], STEPS):.4f} ms CUDA events"
+                 for name in names]
         busy = counts[counts > 0].float()
+        listed = dcounts[dcounts > 0].float()
         phase("timing", f"sweeps on {tag} ({int(busy.numel())} busy runs "
               f"of {counts.numel()}, visits per busy run mean "
-              f"{float(busy.mean()):.2f}, max {int(busy.max())}): "
-              + "; ".join(times) + f" on {card_line}")
+              f"{float(busy.mean()):.2f}, max {int(busy.max())}; "
+              f"{int(listed.numel())} busy lists of {dcounts.numel()}, "
+              f"faces per busy list mean {float(listed.mean()):.2f}, max "
+              f"{int(listed.max())}): " + "; ".join(times)
+              + f" on {card_line}")
+
+
+def sweep_scenes(scene, zoom_scene, large_scene, scene_1536):
+    """time_sweeps' scenes and the sweeps timed on each: all five on the
+    bench and zoom scenes, all but K5 on the large one (its table exceeds
+    a block's shared memory), K1 and K5 on the 1,536-face one."""
+    every = ("raster_sweep", "slot_sweep", "resident_sweep", "dense_sweep",
+             "pallas_raster")
+    return {"bench 16x256^2x512f": (scene, every),
+            "zoom 16x256^2x512f": (zoom_scene, every),
+            "large 1x256^2x8192f": (large_scene, (
+                "raster_sweep", "slot_sweep", "dense_sweep",
+                "pallas_raster")),
+            "16x256^2x1536f": (scene_1536, ("raster_sweep",
+                                            "resident_sweep"))}
+
+
+def sweeps_of(tree):
+    """`--sweeps-of TREE`: time_sweeps alone, on the dirt_tpu_torch package
+    of checkout TREE (another commit's: two commits compared on one card
+    by the same timing code)."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import dirt_tpu_torch
+    if not os.path.abspath(dirt_tpu_torch.__file__).startswith(
+            os.path.abspath(tree) + os.sep):
+        fail(f"dirt_tpu_torch was not imported from {tree}")
+    device = torch.device("cuda", 0)
+    card_line = card()
+    phase("timing", f"the sweeps of {dirt_tpu_torch.__file__}")
+    time_sweeps(sweep_scenes(
+        bench_scene(16, 256, 64, device),
+        bench_scene(16, 256, 64, device, right=0.05),
+        bench_scene(1, 256, 1024, device),
+        bench_scene(16, 256, 192, device)), card_line)
 
 
 def bound(nbytes, ops, peak_ops_per_ms=PEAK_OPS_PER_MS):
@@ -1597,6 +1795,9 @@ def main():
     # 1. Device
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: no CUDA device")
+    if sys.argv[1:2] == ["--sweeps-of"] and len(sys.argv) == 3:
+        sweeps_of(sys.argv[2])
+        return
     card_line = card()
     phase("device", f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}; nvidia-smi: {card_line}")
@@ -1622,7 +1823,12 @@ def main():
     check_truncated("camera-crossing", crossing)
     large_scene = bench_scene(1, 256, 1024, device)
     compare_kernels("1x256^2x8192f", large_scene)
+    check_list_walk("1x256^2x8192f", large_scene)
     zoom_scene = bench_scene(16, 256, 64, device, right=0.05)
+    scene_1536 = bench_scene(16, 256, 192, device)
+    check_resident_walk({"bench 16x256^2x512f": scene,
+                         "zoom 16x256^2x512f": zoom_scene,
+                         "16x256^2x1536f": scene_1536})
 
     # 4. Paths; each kernel's launches are those of the first path that
     # runs it (K1-K4 blocks, K7/K9 dense, K8 pallas, K10 mxu, K5b/K6
@@ -1654,13 +1860,17 @@ def main():
     from dirt_tpu_torch.ops import forward_blocks, grad_dense, grad_mxu
     runs = info["sweep_visits"]
     busy = runs[runs > 0].float()
-    sweep = forward_blocks.sweep_shape(
-        forward_blocks.TILE_H * forward_blocks.TILE_W, forward_blocks.CHUNK,
-        _cuda.shared_memory_optin(device))
+    optin = _cuda.shared_memory_optin(device)
+    pix = forward_blocks.TILE_H * forward_blocks.TILE_W
+    table = info["sweep_args"][0]
+    faces = table.shape[0] * table.shape[1] // scene[0].shape[0]
     phase("kernels", f"K1/K5b at the bench configuration: {busy.numel()} "
           f"busy runs of {runs.numel()}, visits per busy run mean "
           f"{float(busy.mean()):.2f}, max {int(busy.max())}; launch shape "
-          f"{sweep}")
+          f"{forward_blocks.sweep_shape(pix, forward_blocks.CHUNK, optin)}; "
+          f"K8's {forward_blocks.sweep_shape(pix, 1, optin)}; K5's "
+          f"{forward_blocks.resident_shape(pix, faces, optin)}, "
+          f"{forward_blocks.RESIDENT_TILES} tile(s) a block")
     window = info["window_pixels"].float()
     phase("kernels", f"K9 at the bench configuration: window pixels per "
           f"live slot mean {float(window.mean()):.2f}, max "
@@ -1712,7 +1922,9 @@ def main():
             "source": f"dirt_tpu_torch/csrc/{k.source}",
             "replaces": k.replaces, "launches": launches[name],
             "max_abs_err": errors[name],
-            "ms": time_ms(kernel, STEPS), "plain_ms": time_ms(plain, 5),
+            "ms": time_ms(kernel, STEPS),
+            "device_ms": device_time(kernel, name),
+            "plain_ms": time_ms(plain, 5),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None if library is None else time_ms(library,
                                                                STEPS)})
@@ -1720,14 +1932,14 @@ def main():
         all_planes = ("" if all_planes is None else
                       f" (with every plane of the image: "
                       f"{bound(*all_planes)[0]:.4f} ms)")
-        phase("timing", f"{name}: {kernels[-1]['ms']:.4f} ms, plain "
+        phase("timing", f"{name}: {kernels[-1]['ms']:.4f} ms (device "
+              f"{kernels[-1]['device_ms']:.4f}), plain "
               f"{kernels[-1]['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}){all_planes}, library "
               f"{kernels[-1]['library_ms']} ms, {launches[name]} launches "
               f"on {card_line}")
-    time_sweeps({"bench 16x256^2x512f": scene,
-                 "zoom 16x256^2x512f": zoom_scene,
-                 "large 1x256^2x8192f": large_scene}, card_line)
+    time_sweeps(sweep_scenes(scene, zoom_scene, large_scene, scene_1536),
+                card_line)
     for name, ms in steps.items():
         phase("timing", f"{name} step fwd+bwd 16x256^2, 512 faces: median "
               f"{ms:.4f} ms/step over {STEPS} steps on {card_line}")

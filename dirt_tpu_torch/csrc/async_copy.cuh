@@ -1,9 +1,10 @@
 // Asynchronous copies from device memory into shared memory (cp.async),
 // shared by the run walks of the gradient reductions (grad_math.cuh's
 // reduce_run, K3 and K6) and of the forward sweeps (sweep_math.cuh's
-// sweep_run, K1 and K5b).  A thread starts copies, closes them into a
-// group with cp_async_commit, and waits for its own groups; a barrier then
-// publishes every thread's copies to the block.
+// sweep_run, K1, K5b and K8; K5's resident table).  A thread starts
+// copies, closes them into a group with cp_async_commit, and waits for its
+// own groups; a barrier then publishes every thread's copies to the
+// block.
 
 #pragma once
 

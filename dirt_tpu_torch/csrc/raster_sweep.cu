@@ -9,13 +9,14 @@
 // copies its tile's CSR run of face blocks (block_ids[starts[bt] ..
 // starts[bt] + counts[bt]], ascending) into a visit list in shared memory
 // and sweeps it with sweep_math.cuh's sweep_run, shared with K5b
-// slot_sweep: the visits' face rows staged by cp.async, each visit's faces
-// dealt to S face groups of one thread a pixel, a face tested only at the
-// pixels its bbox holds (edge functions, the COVER_FAST fill rule with the
-// |s_z| <= |s_w| clip, depth s_z / s_w, and the lexicographic (depth,
-// original face index) z-test against the running winner, which starts
-// at glClearDepth's (1.0, -1)), then the groups' winners combined in
-// group order and the packed state [C+9, PIX] of forward_dense written.
+// slot_sweep, K5 resident_sweep and K8 pallas_raster: the visits' face
+// rows staged by cp.async, each visit's faces dealt to S face groups of
+// one thread a pixel, a face tested only at the pixels its bbox holds
+// (edge functions, the COVER_FAST fill rule with the |s_z| <= |s_w| clip,
+// depth s_z / s_w, and the lexicographic (depth, original face index)
+// z-test against the running winner, which starts at glClearDepth's
+// (1.0, -1)), then the groups' winners combined in group order and the
+// packed state [C+9, PIX] of forward_dense written.
 //
 // What bounds it on the H100: the bytes bound is the state write (16 x 256
 // tiles x 12 rows x 256 pixels x 4 B = 50 MB at the bench, 0.015 ms), the
@@ -67,9 +68,10 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) raster_sweep_kernel(
   }
   dirt::CsrFill fill{block_ids + starts[bt], n, shape.list, 0};
   dirt::sweep_run(
-      fill, table, chunk, width_d, channels, shape, smem,
+      fill, dirt::StagedFaces<false>{table, chunk, width_d},
+      dirt::StateEpilogue{table, width_d, channels, out, pix}, shape, smem,
       (tile / tiles_x) * tile_h, (tile % tiles_x) * tile_w, tile_w, pix,
-      height, width, sx, sy, out);
+      height, width, sx, sy);
 }
 
 }  // namespace

@@ -92,9 +92,11 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) slot_sweep_kernel(
                       shape.list, 0},
                      scratch[35], false};
   dirt::sweep_run(
-      fill, table, chunk, width_d, channels, shape, smem,
-      (tile / tiles_x) * tile_h, (tile % tiles_x) * tile_w, tile_w, pix,
-      height, width, sx, sy, state + (long long)bt * (channels + 9) * pix);
+      fill, dirt::StagedFaces<false>{table, chunk, width_d},
+      dirt::StateEpilogue{table, width_d, channels,
+                          state + (long long)bt * (channels + 9) * pix, pix},
+      shape, smem, (tile / tiles_x) * tile_h, (tile % tiles_x) * tile_w,
+      tile_w, pix, height, width, sx, sy);
 }
 
 }  // namespace

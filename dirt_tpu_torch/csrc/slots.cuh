@@ -2,8 +2,10 @@
 // the run it owns and writes them into a list in shared memory before it
 // walks them.
 //
-// CSR runs (K1 raster_sweep, K3 grad_reduce): run r's visits are
-// ids[starts[r] .. starts[r] + counts[r]); CsrFill copies them.
+// CSR runs (K1 raster_sweep, K5 resident_sweep, K3 grad_reduce): run r's
+// visits are ids[starts[r] .. starts[r] + counts[r]); CsrFill copies
+// them, and K8 pallas_raster's tile lists (face_ids[bt, 0 .. counts[bt]))
+// alike.
 //
 // Slot lists (K5b slot_sweep, K6 slot_grad_reduce): a flat, batch-folded
 // array of run ids, non-decreasing, in which each run's slots are
@@ -123,7 +125,8 @@ __device__ __forceinline__ SlotRun find_slot_run(const int* keys,
   return run;
 }
 
-// A CSR run's visits: ids[0 .. count), at most `capacity` a piece.
+// A CSR run's visits, or a tile's face list: ids[0 .. count), at most
+// `capacity` a piece.
 struct CsrFill {
   const int* ids;
   int count;

@@ -5,7 +5,8 @@
 // face-table row against its pixel centre and keeps the lexicographic
 // (depth, original face index) winner; all but K8 then write the packed
 // per-pixel state of forward_dense, K8 shades the winner itself.  Below
-// them, the run walk of K1 and K5b (sweep_run).
+// them, the run walk of K1, K5b, K5 and K8 (sweep_run); K7 alone still
+// walks its lists with sweep_list.
 //
 // The arithmetic is forward_dense._chunk_candidates' expression tree for
 // one row: edge functions, the COVER_FAST fill rule with the
@@ -67,8 +68,8 @@ __device__ __forceinline__ void test_face(const float* f, float xg, float yg,
 // Walks one tile's face list: the n table rows ids[0 .. n), staged by
 // index into shared memory `rows` (chunk x width_d floats) `chunk` rows at
 // a time, each tested in list order at (xg, yg).  Every thread of the
-// block must call it (it synchronises); used by K7 dense_sweep and K8
-// pallas_raster, which walk the same per-tile lists.
+// block must call it (it synchronises); K7 dense_sweep is its only caller
+// (K8 walks the same per-tile lists with sweep_run).
 __device__ __forceinline__ void sweep_list(const float* table, const int* ids,
                                            int n, int chunk, int width_d,
                                            float* rows, float xg, float yg,
@@ -116,15 +117,21 @@ __device__ __forceinline__ void write_state(const float* table, int width_d,
 }
 
 // --------------------------------------------------------------------------
-// The run walk of K1 raster_sweep and K5b slot_sweep
+// The run walk of K1 raster_sweep, K5b slot_sweep, K5 resident_sweep and
+// K8 pallas_raster
 // --------------------------------------------------------------------------
 //
-// sweep_run is K1's and K5b's whole kernel body: the H100 form of
-// dirt_tpu/ops/forward_blocks.py's CSR and slot sweeps.  On the TPU a grid
-// step swept a whole tile on the vector unit and the time followed the
-// total work; here one block owns a run (a tile), and at the bench 96 of
-// 4,096 runs carry every visit, so the busiest run's dependent chain of
-// face tests sets the time and the empty runs only write their state.
+// sweep_run is the H100 form of dirt_tpu/ops/forward_blocks.py's CSR and
+// slot sweeps, and of its resident-table and forward_pallas.py's list
+// sweeps.  On the TPU a grid step swept a whole tile on the vector unit
+// and the time followed the total work; here one block owns a run (a
+// tile), and at the bench 96 of 4,096 runs carry every visit, so the
+// busiest run's dependent chain of face tests sets the time and the empty
+// runs only write their outputs.  A run's visits are face blocks of
+// `chunk` table rows (K1, K5b, K5) or single rows (K8: a tile's face
+// list, `chunk` 1); its faces come staged from the table (StagedFaces) or
+// in place from a table resident in shared memory (K5's ResidentFaces);
+// its outputs are the packed state (StateEpilogue) or K8's shaded pixels.
 // The walk answers:
 //   * The visit list in shared memory: the caller's fill writes the run's
 //     visits (batch-folded face blocks) there before any face test (in
@@ -138,10 +145,11 @@ __device__ __forceinline__ void write_state(const float* table, int width_d,
 //     refilled while the other is tested (two barriers a half).
 //   * A busy run's faces over S x pix threads: S face groups of one
 //     thread a pixel, group g testing faces g, g + S, g + 2S, ... of every
-//     visit, each face loaded into registers by 16-byte shared loads.  So
-//     a thread's chain is 1/S of the run's faces.  (Two pixels a thread,
-//     sharing each face's loads, ran the busiest run faster but cost K5b
-//     the blocks an SM holds: PERF.md.)
+//     visit (of a piece's list where a visit is one face), each face
+//     loaded into registers by 16-byte shared loads.  So a thread's chain
+//     is 1/S of the run's faces.  (Two pixels a thread, sharing each
+//     face's loads, ran the busiest run faster but cost K5b the blocks an
+//     SM holds: PERF.md.)
 //   * A bbox cull: a face is tested only at the pixels its conservative
 //     pixel bbox (table columns 20-23, loaded first) holds, the premise
 //     the block hit test and the dense lists already rest on; a warp
@@ -156,7 +164,7 @@ __device__ __forceinline__ void write_state(const float* table, int width_d,
 //     every combine order picks the winner one thread walking the faces
 //     in order picks; the cull drops only faces whose bbox misses the
 //     pixel, never its winner; and the winner's E0..E2 and S_w are
-//     test_face's: the state is equal bit for bit.
+//     test_face's: the outputs are equal bit for bit.
 //   * A run without a visit writes the background with every thread of
 //     the block and retires.
 
@@ -263,9 +271,11 @@ __device__ __forceinline__ void test_staged(const float* face, long long row,
 }
 
 // Tests group g's faces of the n visits of `list` at the thread's pixel,
-// staged through `stage`.  Every thread calls it with the same n; it ends
-// with a barrier, so the list and the staging area may be rewritten after
-// it.
+// staged through `stage`: face k of a visit of `chunk` rows goes to group
+// k mod S, or, kOneFace (chunk 1, a face list), visit v of a staged batch
+// to group v mod S.  Every thread calls it with the same n; it ends with a
+// barrier, so the list and the staging area may be rewritten after it.
+template <bool kOneFace>
 __device__ __forceinline__ void sweep_visits(
     const float* table, const int* list, int n, int chunk, int width_d,
     float* stage, const SweepShape& ss, int g, const Pixel& px, Winner& w) {
@@ -289,11 +299,17 @@ __device__ __forceinline__ void sweep_visits(
     __syncthreads();
     const float* rows = stage + half * batch * per;
     const int m = min(batch, n - b0);
-    for (int v = 0; v < m; ++v) {
-      const long long base = (long long)list[b0 + v] * chunk;
-      const float* vr = rows + v * per;
-      for (int k = g; k < chunk; k += ss.groups) {
-        test_staged(vr + k * kFaceFloats, base + k, px, w);
+    if (kOneFace) {
+      for (int v = g; v < m; v += ss.groups) {
+        test_staged(rows + v * kFaceFloats, list[b0 + v], px, w);
+      }
+    } else {
+      for (int v = 0; v < m; ++v) {
+        const long long base = (long long)list[b0 + v] * chunk;
+        const float* vr = rows + v * per;
+        for (int k = g; k < chunk; k += ss.groups) {
+          test_staged(vr + k * kFaceFloats, base + k, px, w);
+        }
       }
     }
     if (ring) {
@@ -343,23 +359,63 @@ __device__ __forceinline__ void combine_groups(Winner& w, float* buf, int g,
   }
 }
 
+// A run's faces staged from the table a piece at a time (K1 and K5b:
+// visits of `chunk` rows; K8: kOneFace, a list of single rows, chunk 1).
+template <bool kOneFace>
+struct StagedFaces {
+  const float* table;
+  int chunk;
+  int width_d;
+
+  // Tests group g's faces of the n visits of `list`; ends with a barrier.
+  __device__ void sweep(const int* list, int n, float* stage,
+                        const SweepShape& ss, int g, const Pixel& px,
+                        Winner& w) const {
+    sweep_visits<kOneFace>(table, list, n, chunk, width_d, stage, ss, g, px,
+                           w);
+  }
+};
+
+// The packed state [C+9, pix] of a run at `out` (K1, K5b and K5).
+struct StateEpilogue {
+  const float* table;
+  int width_d;
+  int channels;
+  float* out;
+  int pix;
+
+  // Every thread of the block: the run has no visit.
+  __device__ void background() const {
+    write_background(out, channels, pix);
+  }
+  // Group 0's thread of pixel p (image row `row`, column `col`).
+  __device__ void winner(const Winner& w, int p, int row, int col) const {
+    write_state(table, width_d, channels, w, out + p, pix);
+  }
+};
+
 // Sweeps one run, the tile whose first pixel is (row0, col0) of a height
-// x width image, into its state `out` [C+9, pix].  `fill` supplies the
-// run's visits: fill.reset() rewinds it, fill.next(list) writes the next
-// piece (ending with a barrier) and returns its length, fill.done() says
-// whether the run is exhausted; all three are block-uniform.  A block is
-// ss.groups x pix threads, and every thread must call it.
-template <typename Fill>
+// x width image.  `fill` supplies the run's visits: fill.reset() rewinds
+// it, fill.next(list) writes the next piece (ending with a barrier) and
+// returns its length, fill.done() says whether the run is exhausted; all
+// three are block-uniform.  faces.sweep tests group g's faces of a piece
+// (StagedFaces, or K5's resident table) and ends with a barrier; the
+// groups' winners combine in `smem`'s first ss.region floats, which the
+// staging shares.  `out` writes the outputs: out.background() with every
+// thread where the run has no visit, else out.winner() with each of
+// group 0's threads.  A block is ss.groups x pix threads, and every
+// thread must call it.
+template <typename Fill, typename Faces, typename Epilogue>
 __device__ __forceinline__ void sweep_run(
-    Fill& fill, const float* table, int chunk, int width_d, int channels,
-    const SweepShape& ss, float* smem, int row0, int col0, int tile_w,
-    int pix, int height, int width, float sx, float sy, float* out) {
+    Fill& fill, const Faces& faces, const Epilogue& out, const SweepShape& ss,
+    float* smem, int row0, int col0, int tile_w, int pix, int height,
+    int width, float sx, float sy) {
   float* stage = smem;
   int* list = reinterpret_cast<int*>(smem + ss.region);
   fill.reset();
   int n = fill.next(list);
   if (n == 0 && fill.done()) {
-    write_background(out, channels, pix);
+    out.background();
     return;
   }
   const int g = threadIdx.x / pix;
@@ -373,12 +429,12 @@ __device__ __forceinline__ void sweep_run(
                  (float)min(row, height - 1), (float)min(col, width - 1)};
   Winner w;
   for (;;) {
-    sweep_visits(table, list, n, chunk, width_d, stage, ss, g, px, w);
+    faces.sweep(list, n, stage, ss, g, px, w);
     if (fill.done()) break;
     n = fill.next(list);
   }
   combine_groups(w, stage, g, p, pix, ss.groups);
-  if (g == 0) write_state(table, width_d, channels, w, out + p, pix);
+  if (g == 0) out.winner(w, p, row, col);
 }
 
 }  // namespace dirt

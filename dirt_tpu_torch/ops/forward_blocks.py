@@ -20,9 +20,9 @@ The schedule is the JAX package's fused-CSR one:
 Two further schedules compute the same state bit for bit:
 
   * the resident-table sweep (resident_sweep, kernel K5 on CUDA): when the
-    image's face table fits the RESIDENT_MB budget, one thread block
-    stages it in shared memory once for a group of tiles and reads each
-    visit's block by index;
+    image's face table fits the RESIDENT_MB budget, a thread block with a
+    visit in its group of RESIDENT_TILES tiles stages the table in shared
+    memory once and reads each visit's block by index;
   * the slot schedule (FUSED off): build_slots lists one slot per (tile,
     block) hit plus one mandatory slot per tile, and slot_sweep (kernel
     K5b on CUDA) walks each tile's slots.  Tiles whose slots the static
@@ -186,8 +186,10 @@ def slot_runs(slot_run, slot_item, slot_dma, num_runs):
 
 
 def group_for(num_tiles):
-    """Tiles per block of the resident sweep: the largest of 8, 4 and 2
-    that divides the tile count (groups never straddle images), else 1."""
+    """dirt_tpu's tiles per grid step of its resident sweep, mirrored: the
+    largest of 8, 4 and 2 that divides the tile count (groups never
+    straddle images), else 1.  K5 no longer uses it: its blocks take
+    RESIDENT_TILES tiles."""
     for g in (8, 4, 2):
         if num_tiles % g == 0:
             return g
@@ -338,9 +340,9 @@ RASTER_SWEEP = _cuda.Kernel(
     replaces="dirt_tpu/ops/forward_blocks.py:576",
     source="raster_sweep.cu")
 
-# The run walk of K1 and K5b (sweep_math.cuh's sweep_run): a block is S
-# face groups of one thread a pixel; S is the largest power of two up to
-# SWEEP_GROUPS that keeps the block within SWEEP_THREADS, and the kernels'
+# The run walk of K1, K5b, K5 and K8 (sweep_math.cuh's sweep_run): a block
+# is S face groups of one thread a pixel; S is the largest power of two up
+# to SWEEP_GROUPS that keeps the block within SWEEP_THREADS, and the kernels'
 # launch bound holds SWEEP_BLOCKS such blocks on an SM (a bigger tile
 # takes one group, up to 1024 threads).  A face stages FACE_FLOATS
 # floats.  The constants mirror the kernels' kSweepGroups, kSweepThreads,
@@ -366,7 +368,8 @@ SweepShape = collections.namedtuple(
 @functools.lru_cache(maxsize=None)
 def sweep_shape(pix, chunk, optin):
     """The SweepShape of a K1 or K5b launch on tiles of `pix` pixels and
-    `chunk`-face blocks, under `optin` bytes of shared memory a block:
+    `chunk`-face blocks (K8: chunk 1, a face list), under `optin` bytes of
+    shared memory a block:
       groups   S face groups, the largest power of two <= SWEEP_GROUPS
                with S * pix <= SWEEP_THREADS, else 1 (a tile of more
                than SWEEP_THREADS pixels takes the kernels' 1024-thread
@@ -406,17 +409,24 @@ def sweep_shape(pix, chunk, optin):
     return SweepShape(groups, threads, cap, region, listed, smem)
 
 
-def _sweep_args(face_table, pix):
-    """sweep_shape's arguments of K1's and K5b's C entry points: groups,
-    cap, region, list, whether the face rows take 16-byte copies (the
-    table 16-byte aligned, rows of a multiple of 4 floats), and the
-    shared memory's bytes."""
+def _staging(face_table):
+    """Whether the rows of `face_table` [R, chunk, D] take 16-byte copies
+    (the table 16-byte aligned, rows of a multiple of 4 floats), as an
+    int; raises where its rows overflow the kernels' int32 numbering."""
     if face_table.shape[0] * face_table.shape[1] >= 2 ** 31:
         raise ValueError("the sweep numbers face-table rows in int32")
+    return int(face_table.data_ptr() % 16 == 0
+               and face_table.shape[2] % 4 == 0)
+
+
+def _sweep_args(face_table, pix):
+    """sweep_shape's arguments of the run walk's C entry points (K1, K5b,
+    K8) for `face_table` [R, chunk, D]: groups, cap, region, list,
+    _staging, and the shared memory's bytes."""
     s = sweep_shape(pix, face_table.shape[1],
                     _cuda.shared_memory_optin(face_table.device))
-    vec16 = face_table.data_ptr() % 16 == 0 and face_table.shape[2] % 4 == 0
-    return [s.groups, s.cap, s.region, s.list, int(vec16), s.smem]
+    return [s.groups, s.cap, s.region, s.list, _staging(face_table), s.smem]
+
 
 def raster_sweep_plain(face_table, starts, counts, block_ids, channels,
                        height, width, tiles_x, num_tiles, tile_h, tile_w):
@@ -466,9 +476,37 @@ def raster_sweep(face_table, starts, counts, block_ids, channels,
 
 RESIDENT_SWEEP = _cuda.Kernel(
     "resident_sweep", "dirt_resident_sweep",
-    [_cuda.ptr] * 5 + [_cuda.i32] * 10 + [_cuda.f32] * 2 + [_cuda.ptr],
+    [_cuda.ptr] * 5 + [_cuda.i32] * 9 + [_cuda.f32] * 2 + [_cuda.i32] * 8
+    + [_cuda.ptr],
     replaces="dirt_tpu/ops/forward_blocks.py:529",
     source="resident_sweep.cu")
+
+# Tiles a K5 block takes (the last group of an image may hold fewer),
+# chosen by trials (PERF.md); mirrors resident_sweep.cu's kResidentTiles.
+RESIDENT_TILES = 1
+
+ResidentShape = collections.namedtuple(
+    "ResidentShape", "groups threads region list table_at smem")
+
+
+@functools.lru_cache(maxsize=None)
+def resident_shape(pix, faces, optin):
+    """The ResidentShape of a K5 launch on tiles of `pix` pixels and an
+    image's table of `faces` rows, under `optin` bytes of shared memory a
+    block: sweep_shape's groups, threads and visit list; region, the
+    floats of the group combine's (S - 1) * pix winners of 7 words;
+    table_at, the float where the resident table starts (after the
+    region and the list, 16-byte aligned); smem, the bytes of the whole,
+    whose table holds FACE_FLOATS floats a face.  Raises where that
+    exceeds `optin`."""
+    s = sweep_shape(pix, 1, optin)   # groups, threads, list: any chunk
+    region = _cdiv((s.groups - 1) * pix * 7, 4) * 4
+    table_at = _cdiv(region + s.list, 4) * 4
+    smem = 4 * (table_at + faces * FACE_FLOATS)
+    if smem > optin:
+        raise ValueError(f"an image's table of {faces} faces takes {smem} "
+                         f"bytes of shared memory, over the block's {optin}")
+    return ResidentShape(s.groups, s.threads, region, s.list, table_at, smem)
 
 
 def resident_sweep_plain(face_table, starts, counts, block_ids, channels,
@@ -494,9 +532,9 @@ def resident_sweep(face_table, starts, counts, block_ids, channels,
     """K5 wrapper: resident_sweep_plain's state (equal to raster_sweep's
     bit for bit), by the CUDA kernel for CUDA tensors and by the plain
     version for CPU tensors.  The arguments are raster_sweep's; the
-    kernel holds each image's table (NB * chunk * D floats) in shared
-    memory, and its launch fails where the table exceeds the device's
-    opt-in shared memory per block."""
+    kernel holds the FACE_FLOATS leading columns of each image's table
+    (NB * chunk faces) in shared memory, and raises where they exceed
+    the device's opt-in shared memory per block (resident_shape)."""
     if not _cuda.on_cuda(face_table, starts, counts, block_ids):
         return resident_sweep_plain(face_table, starts, counts, block_ids,
                                     channels, height, width, tiles_x,
@@ -504,10 +542,10 @@ def resident_sweep(face_table, starts, counts, block_ids, channels,
     runs = starts.shape[0]
     chunk, width_d = face_table.shape[1], face_table.shape[2]
     pix = tile_h * tile_w
-    if pix > 1024:
-        raise ValueError(f"resident_sweep runs one thread per pixel: a "
-                         f"{tile_h}x{tile_w} tile exceeds 1024 threads")
     num_blocks = face_table.shape[0] // (runs // num_tiles)
+    vec16 = _staging(face_table)
+    shape = resident_shape(pix, num_blocks * chunk,
+                           _cuda.shared_memory_optin(face_table.device))
     state = torch.empty(runs, channels + 9, pix, device=face_table.device)
     RESIDENT_SWEEP(
         _cuda.check("face_table", face_table, torch.float32),
@@ -515,9 +553,10 @@ def resident_sweep(face_table, starts, counts, block_ids, channels,
         _cuda.check("counts", counts, torch.int32, (runs,)),
         _cuda.check("block_ids", block_ids, torch.int32),
         _cuda.check("state", state, torch.float32),
-        runs, group_for(num_tiles), num_blocks, num_tiles, tiles_x, tile_h,
-        tile_w, chunk, width_d, channels, 2.0 / width, 2.0 / height,
-        _cuda.stream())
+        runs, num_blocks, num_tiles, tiles_x, tile_h, tile_w, chunk,
+        width_d, channels, 2.0 / width, 2.0 / height, height, width,
+        shape.groups, shape.region, shape.list, vec16, shape.table_at,
+        shape.smem, _cuda.stream())
     return state
 
 

@@ -175,7 +175,8 @@ def tile_face_cap(num_faces):
 
 PALLAS_RASTER = _cuda.Kernel(
     "pallas_raster", "dirt_pallas_raster",
-    [_cuda.ptr] * 9 + [_cuda.i32] * 11 + [_cuda.f32] * 2 + [_cuda.ptr],
+    [_cuda.ptr] * 9 + [_cuda.i32] * 10 + [_cuda.f32] * 2 + [_cuda.i32] * 6
+    + [_cuda.ptr],
     replaces="dirt_tpu/ops/forward_pallas.py:215",
     source="pallas_raster.cu")
 
@@ -303,7 +304,10 @@ def pallas_raster(face_table, face_ids, counts, background, tiles_x,
 
     face_table [B*F', D] f32 (the images' tables stacked); face_ids
     [B*T, slots] int32 rows of it, batch-folded; counts [B*T] int32;
-    background [B, H, W, C] f32."""
+    background [B, H, W, C] f32.  The kernel walks each list with K1's
+    run walk at one face a visit (forward_blocks.sweep_shape(pix, 1, ..));
+    `chunk` is the plain version's."""
+    from . import forward_blocks
     if not _cuda.on_cuda(face_table, face_ids, counts, background):
         return pallas_raster_plain(face_table, face_ids, counts, background,
                                    tiles_x, num_tiles, tile_h, tile_w, chunk)
@@ -315,6 +319,7 @@ def pallas_raster(face_table, face_ids, counts, background, tiles_x,
     if runs != batch * num_tiles:
         raise ValueError(f"{runs} face lists for {batch} images of "
                          f"{num_tiles} tiles")
+    shape = forward_blocks._sweep_args(face_table[:, None], tile_h * tile_w)
     device = background.device
     hw = (batch, height, width)
     pixels = torch.empty(hw + (channels,), device=device)
@@ -332,9 +337,9 @@ def pallas_raster(face_table, face_ids, counts, background, tiles_x,
         _cuda.check("indices", indices, torch.int32),
         _cuda.check("barycentric", barycentric, torch.float32),
         _cuda.check("clip_w", clip_w, torch.float32),
-        runs, slots, num_tiles, tiles_x, tile_h, tile_w, chunk,
+        runs, slots, num_tiles, tiles_x, tile_h, tile_w,
         face_table.shape[1], channels, height, width, 2.0 / width,
-        2.0 / height, _cuda.stream())
+        2.0 / height, *shape, _cuda.stream())
     return pixels, face_index, indices, barycentric, clip_w
 
 

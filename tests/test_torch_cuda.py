@@ -9,7 +9,9 @@ The checks are chip_smoke.py's, at small shapes: the hit plane, the
 sweeps' states (the slot sweep K5b's and the resident sweep K5's also
 equal to K1's; K1 and K5b also on runs of 0, 1, 121 and more visits than
 their visit list, on exact depth ties, each equal to itself in two
-calls), the fused sweep-and-shade outputs and the plane stack
+calls; K8 on lists of 0, 1, 301 and 3,728 faces, K5 with every group
+empty, zoomed and at 1,536 faces), the fused sweep-and-shade outputs and
+the plane stack
 (also with the diagonal dilation) bitwise, the reductions' rows within
 1e-5 (normalised; the slot reduction K6's equal to K3's; K9 also at
 windows clipped by the tile edges, K10 over several chunks a band, each
@@ -378,6 +380,25 @@ def test_slot_and_resident_sweeps_equal_k1(device, channels):
     slot_args = (*slots[:4], 2, channels, h, w, tiles_x, num_tiles, 16, 16)
     assert torch.equal(forward_blocks.slot_sweep(*slot_args), k1)
     assert torch.equal(forward_blocks.slot_sweep_plain(*slot_args), k1)
+
+
+def test_pallas_raster_edge_lists(device):
+    # K8 on the run walk: lists of 0, 1, 301 and 3,728 faces (more than
+    # the visit list and the staging area hold) on a 4,096-face image; ==
+    # its plain version bit for bit and in two calls.
+    listed = chip_smoke.check_list_walk(
+        "edge", chip_smoke.bench_scene(1, 64, 512, device))
+    assert listed == [3728, 301, 1]
+
+
+def test_resident_walk(device):
+    # K5 on the run walk: every group empty, busy tiles side by side
+    # (zoomed), and a 1,536-face table (147,456 bytes staged): == its
+    # plain version and K1 bit for bit, == in two calls.
+    chip_smoke.check_resident_walk({
+        "bench": chip_smoke.bench_scene(2, 64, 16, device),
+        "zoom": chip_smoke.bench_scene(2, 64, 16, device, right=0.05),
+        "1536 faces": chip_smoke.bench_scene(2, 64, 192, device)})
 
 
 def test_sweep_edge_runs(device):
