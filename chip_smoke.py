@@ -34,13 +34,17 @@ failure:
      every scene, and on runs of 0, 1, 121 and more visits than their
      visit list (the staging's two halves, several pieces) K1 and K5b ==
      their plain versions bit for bit and K5b == K1; K8 and K5 each give
-     equal results in two calls; on the 8192-face image K8 on lists of 0,
-     1, 301 and 3,728 faces (more than its visit list and its staging
-     area hold) == its plain version bit for bit, the unlisted tiles
+     equal results in two calls; on the 8192-face image K8 and K7 on
+     lists of 0, 1, 301 and 3,728 faces (more than their visit list and
+     their staging area hold) == their plain versions bit for bit and in
+     two calls, K7's pixels after finalize == K8's, the unlisted tiles
      background; K5 == its plain version == K1 bit for bit with every
      count zeroed (every group empty), on the zoom scene and on a
      1,536-face scene (16 x 256^2, whose table nears a block's shared
-     memory);
+     memory); K4 on the forward and the gradient pack's tables of the
+     bench, zoom, 8192-face and 1,536-face scenes and a ragged cut of the
+     100x100 one, at dilate 0 and 1, with and without the edge cull, ==
+     its plain version bit for bit;
   4. paths, each with every launch counter reset just before and read just
      after, failing if a kernel of the path was not launched:
      a. blocks (the default): rasterise_batch forward + backward; image 0
@@ -92,7 +96,8 @@ failure:
      on the bench scene, a timing-only "zoom" scene (the bench with the
      projection's half-width 0.05 for 0.25: many busy tiles) and the
      large one (K1, K5b, K7, K8; K5 on the bench, zoom and 1,536-face
-     scenes), profiler device ms and CUDA-event ms; each kernel, by
+     scenes; K4 at dilate 0 and 1 on all four), profiler device ms and
+     CUDA-event ms; each kernel, by
      CUDA-event ms and by the profiler's device ms of its CUDA kernel (a
      kernel the profiler does not see fails the run), against its plain
      version, its bound (for
@@ -125,6 +130,7 @@ GRAD_TOL = 3e-6      # normalised, as dirt_tpu's tests/test_grad_kernels.py
 ROW_TOL = 1e-5
 STEPS = 25
 PROFILE_STEPS = 10
+PROFILE_TRIES = 3     # profiles of one measurement at most (profiled)
 # The H100 SXM's published peaks: device memory 3.35 TB/s, float32
 # outside the tensor cores 67 TFLOP/s, bf16 dense tensor cores 989 TFLOP/s.
 PEAK_BYTES_PER_MS = 3.35e9
@@ -269,6 +275,18 @@ def _max_abs(a, b):
 
 def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def hit_work(face_data, num_tiles, edge_col):
+    """K4's bytes and operations on a [B, F, D] face table and `num_tiles`
+    tiles: the columns it reads of each face once (the four bbox columns,
+    and the nine edge coefficients where the edge cull is on, edge_col >=
+    0), the [B, T, F] float plane it writes, and OPS_HIT a (tile, face)."""
+    batch, num_faces = face_data.shape[:2]
+    columns = 4 + (9 if edge_col is not None and edge_col >= 0 else 0)
+    pairs = batch * num_tiles * num_faces
+    return ((batch * num_faces * columns + pairs)
+            * face_data.element_size(), pairs * OPS_HIT)
 
 
 def segment_sum(planes, clip, faces, channels):
@@ -514,10 +532,7 @@ def kernel_inputs(scene):
     visits = int(counts.sum())
     listed = int(dcounts.sum())
     work = {
-        "hit_plane": (_nbytes(face_data) + batch * tiles_y * tiles_x
-                      * face_data.shape[1] * 4,
-                      batch * tiles_y * tiles_x * face_data.shape[1]
-                      * OPS_HIT),
+        "hit_plane": hit_work(face_data, tiles_y * tiles_x, hit_args[6]),
         "raster_sweep": (_nbytes(table, starts, counts) + visits * 4
                          + state_bytes,
                          visits * chunk * pix * OPS_FACE_TEST),
@@ -880,32 +895,50 @@ def check_sweep_walk(tag, info):
 
 
 def check_list_walk(tag, scene, lengths=(3728, 301, 1)):
-    """K8 on the run walk: image 0's three busiest tiles of `scene` (the
-    dense packing) take lists of `lengths` faces, each the first entries
-    of its own list (hits first; at most the slots), every other tile
-    none.  K8's five outputs == its plain version's bit for bit and ==
-    themselves in a second call; the tiles without a list are
-    background.  Returns the lengths."""
+    """K7 and K8 on the run walk: image 0's three busiest tiles of `scene`
+    (the dense packing) take lists of `lengths` faces, each the first
+    entries of its own list (hits first; at most the slots) followed by
+    the list's faces that miss the tile, every other tile none.  K8's five
+    outputs == its plain version's bit for bit and == themselves in a
+    second call; the tiles without a list are background.  K7's state ==
+    its plain version's (which sweeps each list's live chunks, the
+    following misses included) under torch.equal and == itself in a
+    second call, and its pixels after finalize == K8's.  Returns the
+    lengths."""
     from dirt_tpu_torch.ops import (_cuda, forward_blocks as fb,
                                     forward_dense, forward_pallas)
     background, clip, colors, faces, _ = scene
-    batch, height, width, _ = background.shape
+    batch, height, width, channels = background.shape
     th, tw = forward_dense.tile_shape(height, width)
     chunk = forward_dense.CHUNK
     tiles_x = _cdiv(width, tw)
-    num_tiles = _cdiv(height, th) * tiles_x
+    tiles_y = _cdiv(height, th)
+    num_tiles = tiles_y * tiles_x
     table, face_ids, counts, _ = forward_dense.pack(
         clip, colors, faces, height, width, th, tw, chunk)
     tiles = torch.argsort(counts[:num_tiles], descending=True,
                           stable=True)[:len(lengths)].tolist()
     edge = torch.zeros_like(counts)
+    face_ids = face_ids.clone()
     for tile, n in zip(tiles, lengths):
-        edge[tile] = min(n, face_ids.shape[1])
+        n = min(n, face_ids.shape[1])
+        edge[tile] = n
+        hits = int(counts[tile])
+        if n < hits:
+            # The misses after the first n hits, so that dense_sweep_plain's
+            # live-chunk tail covers nothing, as in a packed list.
+            row = face_ids[tile]
+            face_ids[tile] = torch.cat([row[:n], row[hits:], row[n:hits]])
     args = (table, face_ids, edge, background, tiles_x, num_tiles, th, tw,
             chunk)
     got = forward_pallas.pallas_raster(*args)
     again = forward_pallas.pallas_raster(*args)
     want = forward_pallas.pallas_raster_plain(*args)
+    dense_args = (table, face_ids, edge, channels, height, width, tiles_x,
+                  num_tiles, th, tw, chunk)
+    k7 = forward_dense.dense_sweep(*dense_args)
+    k7_again = forward_dense.dense_sweep(*dense_args)
+    k7_plain = forward_dense.dense_sweep_plain(*dense_args)
     torch.cuda.synchronize()
     for what, k, a, p in zip(("pixels", "face index", "vertex ids",
                               "barycentrics", "clip w"), got, again, want,
@@ -914,6 +947,16 @@ def check_list_walk(tag, scene, lengths=(3728, 301, 1)):
             fail(f"{tag}: on lists of {edge[tiles].tolist()} faces "
                  f"pallas_raster {what} differ from its plain version (max "
                  f"{_max_abs(k, p)}) or between two calls")
+    if not (torch.equal(k7, k7_plain) and torch.equal(k7_again, k7)):
+        fail(f"{tag}: on lists of {edge[tiles].tolist()} faces dense_sweep "
+             f"differs from its plain version (max {_max_abs(k7, k7_plain)})"
+             f" or between two calls")
+    k7_pixels = forward_dense.finalize(
+        k7.reshape(batch, num_tiles, channels + 9, th * tw), background,
+        height, width, tiles_y, tiles_x, tile_h=th, tile_w=tw)[0]
+    if not torch.equal(k7_pixels, got[0]):
+        fail(f"{tag}: on the edge lists dense_sweep's pixels differ from "
+             f"pallas_raster's after finalize")
     rows = torch.arange(height, device=edge.device)[:, None] // th
     cols = torch.arange(width, device=edge.device)[None, :] // tw
     unlisted = edge[:num_tiles][rows * tiles_x + cols] == 0
@@ -926,11 +969,70 @@ def check_list_walk(tag, scene, lengths=(3728, 301, 1)):
     shape = fb.sweep_shape(th * tw, 1, _cuda.shared_memory_optin(
         table.device))
     listed = edge[tiles].tolist()
-    phase("kernels", f"{tag}: K8 pallas_raster on lists of {listed} faces "
-          f"and 0 (a visit list of {shape.list}, staging for {shape.cap}): "
-          f"== its plain version bit for bit and in two calls, unlisted "
-          f"tiles background OK")
+    phase("kernels", f"{tag}: K8 pallas_raster and K7 dense_sweep on lists "
+          f"of {listed} faces and 0 (a visit list of {shape.list}, staging "
+          f"for {shape.cap}): == their plain versions and in two calls, K7's "
+          f"pixels == K8's, unlisted tiles background OK")
     return listed
+
+
+def hit_tables(scene):
+    """K4's inputs on `scene` as the packs give them: the forward pack's
+    face table [B, F, D] (bbox columns, edge coefficients from column 0,
+    dilate 0) and the gradient pack's (its bbox columns, edges from
+    column 12, dilate 1), with the tile grid."""
+    from dirt_tpu_torch.ops import forward_blocks as fb, grad_blocks as gb
+    background, clip, colors, faces, _ = scene
+    batch, height, width, _ = background.shape
+    table = fb.pack(clip, colors, faces, height, width, fb.TILE_H,
+                    fb.TILE_W, fb.CHUNK)[0]
+    gtable = gb.pack(clip, faces, height, width, gb.TILE_H, gb.TILE_W,
+                     gb.CHUNK)[0]
+    grid = (_cdiv(height, fb.TILE_H), _cdiv(width, fb.TILE_W), fb.TILE_H,
+            fb.TILE_W)
+    ggrid = (_cdiv(height, gb.TILE_H), _cdiv(width, gb.TILE_W), gb.TILE_H,
+             gb.TILE_W)
+    return {0: (table.reshape(batch, -1, table.shape[-1]), fb._BBOX, *grid,
+                0, height, width, 0),
+            1: (gtable.reshape(batch, -1, gtable.shape[-1]), gb._BBOX,
+                *ggrid, 12, height, width, 1)}
+
+
+def check_hit_plane(scenes, ragged):
+    """K4 on each of `scenes` ({tag: scene}) and on the forward table of
+    scene `ragged` (a 100 x 100 image: 7 x 7 tiles) cut to 3 images and
+    300 faces (ragged against the blocks and tile groups) and to 5 faces
+    of one image repeated 70,000 times (more images than a grid's y or z
+    dimension holds): the forward pack's and the gradient pack's tables,
+    each at dilate 0 and 1, with its edge cull and without (edge_col -1):
+    == its plain version bit for bit."""
+    from dirt_tpu_torch.ops import forward_blocks as fb
+    cases = {}
+    for tag, scene in scenes.items():
+        for dilate, args in hit_tables(scene).items():
+            cases[f"{tag}, {('forward', 'gradient')[dilate]} table"] = args
+    table, *rest = hit_tables(ragged)[0]
+    cases["ragged 3x100^2x300f"] = (table[:3, :300].contiguous(), *rest)
+    # More images than a grid's y or z dimension may hold.
+    cases["many images 70000x100^2x5f"] = (
+        table[:1, :5].expand(70000, -1, -1).contiguous(), *rest)
+    kept = {}
+    for tag, args in cases.items():
+        for dilate in (0, 1):
+            for edges in (args[6], None):
+                call = (*args[:6], edges, *args[7:9], dilate)
+                got, want = fb.hit_plane(*call), fb.hit_plane_plain(*call)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    fail(f"{tag}: hit_plane at dilate {dilate}, edges "
+                         f"{edges}, differs from its plain version in "
+                         f"{int((got != want).sum())} of {got.numel()}")
+        kept[tag] = tuple(args[0].shape)
+    phase("kernels", f"K4 hit_plane, blocks of {fb.HIT_FACES} faces x "
+          f"{fb.HIT_TILES} tiles, on (images, faces, columns) " + "; ".join(
+              f"{tag} {shape}" for tag, shape in kept.items())
+          + ": at dilate 0 and 1, with and without the edge cull, == its "
+          "plain version bit for bit OK")
 
 
 def check_resident_walk(scenes):
@@ -1632,22 +1734,36 @@ REDUCTION_KERNELS = {
     "K10": (DEVICE_KERNELS["mxu_grad"],)}
 
 
+def profiled(fn, reps, cpu, seen):
+    """torch.profiler's key_averages() of `reps` calls of fn() after one
+    warm-up (device activity, and host activity if `cpu`), profiled again,
+    up to PROFILE_TRIES times in all, while seen(averages) is false: now
+    and then a profile records no device event at all."""
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CUDA] + [ProfilerActivity.CPU] * cpu
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=activities) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        averages = prof.key_averages()
+        if seen(averages):
+            break
+    return averages
+
+
 def device_profile(fn, reps):
     """torch.profiler's view of fn(), per call over `reps` calls after one
     warm-up: (device ms, device kernels, {largest device items: ms},
     {reduction (REDUCTION_KERNELS): its device ms}); the device ms is None
     where the profiler records no device time."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    device = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA")
-              and e.self_device_time_total > 0]
+    on_device = lambda e: (str(e.device_type).endswith("CUDA")
+                           and e.self_device_time_total > 0)
+    device = [e for e in profiled(fn, reps, True,
+                                  lambda av: any(map(on_device, av)))
+              if on_device(e)]
     if not device:
         return None, 0, {}, {}
     items = {}
@@ -1666,16 +1782,10 @@ def device_profile(fn, reps):
 def kernel_device_ms(fn, name, reps):
     """torch.profiler's device ms of the CUDA kernel `name` per call of
     fn(), over `reps` calls after one warm-up; None where the profiler
-    records no device time."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if name in e.key)
+    records no device time of it."""
+    kernel_us = lambda averages: sum(e.self_device_time_total
+                                     for e in averages if name in e.key)
+    us = kernel_us(profiled(fn, reps, False, kernel_us))
     return us / 1e3 / reps if us > 0 else None
 
 
@@ -1689,9 +1799,10 @@ def device_time(fn, name):
 
 
 def time_sweeps(scenes, card_line):
-    """The forward sweeps' times on each of `scenes` ({tag: (scene,
-    kernels)}): device ms on the profiler and CUDA-event ms (median of
-    STEPS) of each kernel named, beside the scene's busy runs (K1's
+    """The forward sweeps' and K4's times on each of `scenes` ({tag:
+    (scene, kernels)}): device ms on the profiler and CUDA-event ms
+    (median of STEPS) of each kernel named ("hit_plane dilate 1": K4 on
+    the gradient pack's table), beside the scene's busy runs (K1's
     blocks) and busy lists (K7's and K8's)."""
     from dirt_tpu_torch.ops import (forward_blocks as fb, forward_dense,
                                     forward_pallas)
@@ -1717,7 +1828,10 @@ def time_sweeps(scenes, card_line):
                  forward_dense.CHUNK)
         pallas = (background, dtiles_x, dnum_tiles, dth, dtw,
                   forward_dense.CHUNK)
-        runs = {"raster_sweep": lambda: fb.raster_sweep(*csr),
+        hits = hit_tables((background, clip, colors, faces, None))
+        runs = {"hit_plane": lambda: fb.hit_plane(*hits[0]),
+                "hit_plane dilate 1": lambda: fb.hit_plane(*hits[1]),
+                "raster_sweep": lambda: fb.raster_sweep(*csr),
                 "slot_sweep": lambda: fb.slot_sweep(*slots, batch,
                                                     *geometry),
                 "resident_sweep": lambda: fb.resident_sweep(*csr),
@@ -1725,9 +1839,24 @@ def time_sweeps(scenes, card_line):
                                                                  *dense),
                 "pallas_raster": lambda: forward_pallas.pallas_raster(
                     *lists, *pallas)}
-        times = [f"{name} {device_time(runs[name], name):.4f} ms device, "
-                 f"{time_ms(runs[name], STEPS):.4f} ms CUDA events"
+        times = [f"{name} {device_time(runs[name], name.split()[0]):.4f} "
+                 f"ms device, {time_ms(runs[name], STEPS):.4f} ms CUDA events"
                  for name in names]
+        for name, args in (("hit_plane", hits[0]),
+                           ("hit_plane dilate 1", hits[1])):
+            if name in names:
+                ms = bound(*hit_work(args[0], args[2] * args[3], args[6]))[0]
+                times.append(f"{name} bound {ms:.6f} ms")
+        if "hit_plane" in names:
+            # K4's yardstick: PyTorch's fill of a plane of the same shape,
+            # its writes alone.
+            plane = torch.empty(batch, num_tiles, hits[0][0].shape[1],
+                                device=background.device)
+            fill_ms = kernel_device_ms(lambda: plane.fill_(1.0),
+                                       "FillFunctor", PROFILE_STEPS)
+            times.append(f"fill of K4's {tuple(plane.shape)} plane "
+                         + ("not measured" if fill_ms is None
+                            else f"{fill_ms:.4f} ms device"))
         busy = counts[counts > 0].float()
         listed = dcounts[dcounts > 0].float()
         phase("timing", f"sweeps on {tag} ({int(busy.numel())} busy runs "
@@ -1740,18 +1869,21 @@ def time_sweeps(scenes, card_line):
 
 
 def sweep_scenes(scene, zoom_scene, large_scene, scene_1536):
-    """time_sweeps' scenes and the sweeps timed on each: all five on the
-    bench and zoom scenes, all but K5 on the large one (its table exceeds
-    a block's shared memory), K1 and K5 on the 1,536-face one."""
-    every = ("raster_sweep", "slot_sweep", "resident_sweep", "dense_sweep",
-             "pallas_raster")
+    """time_sweeps' scenes and the kernels timed on each: K4 at dilate 0
+    (the forward pack's table) and 1 (the gradient pack's) on all four;
+    all five sweeps on the bench and zoom scenes, all but K5 on the large
+    one (its table exceeds a block's shared memory), K1 and K5 on the
+    1,536-face one."""
+    hits = ("hit_plane", "hit_plane dilate 1")
+    every = hits + ("raster_sweep", "slot_sweep", "resident_sweep",
+                    "dense_sweep", "pallas_raster")
     return {"bench 16x256^2x512f": (scene, every),
             "zoom 16x256^2x512f": (zoom_scene, every),
-            "large 1x256^2x8192f": (large_scene, (
+            "large 1x256^2x8192f": (large_scene, hits + (
                 "raster_sweep", "slot_sweep", "dense_sweep",
                 "pallas_raster")),
-            "16x256^2x1536f": (scene_1536, ("raster_sweep",
-                                            "resident_sweep"))}
+            "16x256^2x1536f": (scene_1536, hits + ("raster_sweep",
+                                                   "resident_sweep"))}
 
 
 def sweeps_of(tree):
@@ -1817,7 +1949,8 @@ def main():
     errors, calls, info = compare_kernels("bench 16x256^2x512f", scene)
     check_reduce_walk("bench 16x256^2x512f", calls, info)
     check_sweep_walk("bench 16x256^2x512f", info)
-    compare_kernels("100x100", bench_scene(4, 100, 64, device))
+    scene_100 = bench_scene(4, 100, 64, device)
+    compare_kernels("100x100", scene_100)
     crossing = crossing_scene(device)
     compare_kernels("camera-crossing", crossing)
     check_truncated("camera-crossing", crossing)
@@ -1829,6 +1962,10 @@ def main():
     check_resident_walk({"bench 16x256^2x512f": scene,
                          "zoom 16x256^2x512f": zoom_scene,
                          "16x256^2x1536f": scene_1536})
+    check_hit_plane({"bench 16x256^2x512f": scene,
+                     "zoom 16x256^2x512f": zoom_scene,
+                     "1x256^2x8192f": large_scene,
+                     "16x256^2x1536f": scene_1536}, scene_100)
 
     # 4. Paths; each kernel's launches are those of the first path that
     # runs it (K1-K4 blocks, K7/K9 dense, K8 pallas, K10 mxu, K5b/K6

@@ -4,8 +4,8 @@
 //
 // CSR runs (K1 raster_sweep, K5 resident_sweep, K3 grad_reduce): run r's
 // visits are ids[starts[r] .. starts[r] + counts[r]); CsrFill copies
-// them, and K8 pallas_raster's tile lists (face_ids[bt, 0 .. counts[bt]))
-// alike.
+// them, and K7 dense_sweep's and K8 pallas_raster's tile lists
+// (face_ids[bt, 0 .. counts[bt])) alike.
 //
 // Slot lists (K5b slot_sweep, K6 slot_grad_reduce): a flat, batch-folded
 // array of run ids, non-decreasing, in which each run's slots are

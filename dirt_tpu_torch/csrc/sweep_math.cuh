@@ -1,12 +1,12 @@
-// The per-face arithmetic of the forward sweeps, shared by K1 raster_sweep
-// (raster_sweep.cu), K5b slot_sweep (slot_sweep.cu), K5 resident_sweep
-// (resident_sweep.cu), K7 dense_sweep (dense_sweep.cu) and K8
-// pallas_raster (pallas_raster.cu) so they cannot drift: a thread tests a
-// face-table row against its pixel centre and keeps the lexicographic
+// The per-face arithmetic and the run walk of the forward sweeps, shared
+// by K1 raster_sweep (raster_sweep.cu), K5b slot_sweep (slot_sweep.cu), K5
+// resident_sweep (resident_sweep.cu), K7 dense_sweep (dense_sweep.cu) and
+// K8 pallas_raster (pallas_raster.cu) so they cannot drift: a thread tests
+// a face-table row against its pixel centre and keeps the lexicographic
 // (depth, original face index) winner; all but K8 then write the packed
-// per-pixel state of forward_dense, K8 shades the winner itself.  Below
-// them, the run walk of K1, K5b, K5 and K8 (sweep_run); K7 alone still
-// walks its lists with sweep_list.
+// per-pixel state of forward_dense, K8 shades the winner itself.  All five
+// walk their runs (face blocks of a CSR run or a slot list, or a tile's
+// face list) with sweep_run, below.
 //
 // The arithmetic is forward_dense._chunk_candidates' expression tree for
 // one row: edge functions, the COVER_FAST fill rule with the
@@ -65,29 +65,6 @@ __device__ __forceinline__ void test_face(const float* f, float xg, float yg,
   }
 }
 
-// Walks one tile's face list: the n table rows ids[0 .. n), staged by
-// index into shared memory `rows` (chunk x width_d floats) `chunk` rows at
-// a time, each tested in list order at (xg, yg).  Every thread of the
-// block must call it (it synchronises); K7 dense_sweep is its only caller
-// (K8 walks the same per-tile lists with sweep_run).
-__device__ __forceinline__ void sweep_list(const float* table, const int* ids,
-                                           int n, int chunk, int width_d,
-                                           float* rows, float xg, float yg,
-                                           Winner& w) {
-  for (int i0 = 0; i0 < n; i0 += chunk) {
-    const int k_end = min(chunk, n - i0);
-    __syncthreads();
-    for (int j = threadIdx.x; j < k_end * width_d; j += blockDim.x) {
-      const int k = j / width_d;
-      rows[j] = table[(long long)ids[i0 + k] * width_d + (j - k * width_d)];
-    }
-    __syncthreads();
-    for (int k = 0; k < k_end; ++k) {
-      test_face(rows + k * width_d, xg, yg, ids[i0 + k], w);
-    }
-  }
-}
-
 // Writes the packed state [C+9] of one pixel (stride `pix` between rows):
 // the winner's interpolation numerators ((E0*a0 + E1*a1) + E2*a2, read
 // from its table row, so finalize's single division keeps constant
@@ -117,21 +94,22 @@ __device__ __forceinline__ void write_state(const float* table, int width_d,
 }
 
 // --------------------------------------------------------------------------
-// The run walk of K1 raster_sweep, K5b slot_sweep, K5 resident_sweep and
-// K8 pallas_raster
+// The run walk of K1 raster_sweep, K5b slot_sweep, K5 resident_sweep, K7
+// dense_sweep and K8 pallas_raster
 // --------------------------------------------------------------------------
 //
 // sweep_run is the H100 form of dirt_tpu/ops/forward_blocks.py's CSR and
-// slot sweeps, and of its resident-table and forward_pallas.py's list
-// sweeps.  On the TPU a grid step swept a whole tile on the vector unit
+// slot sweeps, of its resident-table sweep and of forward_dense.py's and
+// forward_pallas.py's list sweeps.  On the TPU a grid step swept a whole tile on the vector unit
 // and the time followed the total work; here one block owns a run (a
 // tile), and at the bench 96 of 4,096 runs carry every visit, so the
 // busiest run's dependent chain of face tests sets the time and the empty
 // runs only write their outputs.  A run's visits are face blocks of
-// `chunk` table rows (K1, K5b, K5) or single rows (K8: a tile's face
-// list, `chunk` 1); its faces come staged from the table (StagedFaces) or
-// in place from a table resident in shared memory (K5's ResidentFaces);
-// its outputs are the packed state (StateEpilogue) or K8's shaded pixels.
+// `chunk` table rows (K1, K5b, K5) or single rows (K7 and K8: a tile's
+// face list, `chunk` 1); its faces come staged from the table
+// (StagedFaces) or in place from a table resident in shared memory (K5's
+// ResidentFaces); its outputs are the packed state (StateEpilogue: K1,
+// K5b, K5, K7) or K8's shaded pixels.
 // The walk answers:
 //   * The visit list in shared memory: the caller's fill writes the run's
 //     visits (batch-folded face blocks) there before any face test (in
@@ -360,7 +338,8 @@ __device__ __forceinline__ void combine_groups(Winner& w, float* buf, int g,
 }
 
 // A run's faces staged from the table a piece at a time (K1 and K5b:
-// visits of `chunk` rows; K8: kOneFace, a list of single rows, chunk 1).
+// visits of `chunk` rows; K7 and K8: kOneFace, a list of single rows,
+// chunk 1).
 template <bool kOneFace>
 struct StagedFaces {
   const float* table;
@@ -376,7 +355,7 @@ struct StagedFaces {
   }
 };
 
-// The packed state [C+9, pix] of a run at `out` (K1, K5b and K5).
+// The packed state [C+9, pix] of a run at `out` (K1, K5b, K5 and K7).
 struct StateEpilogue {
   const float* table;
   int width_d;

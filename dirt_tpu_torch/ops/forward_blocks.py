@@ -232,6 +232,13 @@ HIT_PLANE = _cuda.Kernel(
     + [_cuda.ptr],
     replaces="dirt_tpu/ops/forward_blocks.py:322", source="hit_plane.cu")
 
+# K4's launch shape, which the kernel sizes itself: a block of HIT_FACES
+# threads, one face each, loops over a group of HIT_TILES tiles of one
+# image (hit_plane.cu's kHitFaces and kHitTiles; the CPU tests hold its
+# grid to writing every entry of the plane once).
+HIT_FACES = 128
+HIT_TILES = 16
+
 
 def _edge_keep(row, edge_cols, tile_r0, tile_c0, tile_h, tile_w, height,
                width, dilate):

@@ -5,10 +5,10 @@
     faces whose bboxes overlap it, first, in draw order, under the
     per-tile cap (forward_pallas.tile_face_cap) whose overflow is counted
     in RasterAux.dropped;
-  * the sweep (dense_sweep, kernel K7 on CUDA) walks each tile's list and
-    keeps the lexicographic (depth, original index) winner per pixel:
-    dirt_tpu's _chunk_candidates + merge_state over the list's live
-    chunks;
+  * the sweep (dense_sweep, kernel K7 on CUDA, on K1's run walk) walks
+    each tile's list and keeps the lexicographic (depth, original index)
+    winner per pixel: dirt_tpu's _chunk_candidates + merge_state over the
+    list's live chunks;
   * finalize un-tiles the state and does the one division (shared with
     the block-binned backend, ops/forward_blocks.py, whose sweep K1 runs
     the same per-face arithmetic).
@@ -169,7 +169,8 @@ def finalize(state, background, height, width, tiles_y, tiles_x,
 
 DENSE_SWEEP = _cuda.Kernel(
     "dense_sweep", "dirt_dense_sweep",
-    [_cuda.ptr] * 4 + [_cuda.i32] * 9 + [_cuda.f32] * 2 + [_cuda.ptr],
+    [_cuda.ptr] * 4 + [_cuda.i32] * 10 + [_cuda.f32] * 2 + [_cuda.i32] * 6
+    + [_cuda.ptr],
     replaces=("dirt_tpu/ops/forward_dense.py:290, "
               "dirt_tpu/ops/forward_dense.py:262"),
     source="dense_sweep.cu")
@@ -226,7 +227,11 @@ def dense_sweep(face_table, face_ids, counts, channels, height, width,
     tensors and by the plain version for CPU tensors.
 
     face_table [B*F', D] f32 (the images' tables stacked); face_ids
-    [B*T, slots] int32 rows of it, batch-folded; counts [B*T] int32."""
+    [B*T, slots] int32 rows of it, batch-folded; counts [B*T] int32.  The
+    kernel walks each list with K1's run walk at one face a visit
+    (forward_blocks.sweep_shape(pix, 1, ..)), as K8 does; `chunk` is the
+    plain version's."""
+    from . import forward_blocks
     if not _cuda.on_cuda(face_table, face_ids, counts):
         return dense_sweep_plain(face_table, face_ids, counts, channels,
                                  height, width, tiles_x, num_tiles, tile_h,
@@ -237,14 +242,15 @@ def dense_sweep(face_table, face_ids, counts, channels, height, width,
     if pix > 1024:
         raise ValueError(f"dense_sweep runs one thread per pixel: a "
                          f"{tile_h}x{tile_w} tile exceeds 1024 threads")
+    shape = forward_blocks._sweep_args(face_table[:, None], pix)
     state = torch.empty(runs, channels + 9, pix, device=face_table.device)
     DENSE_SWEEP(
         _cuda.check("face_table", face_table, torch.float32),
         _cuda.check("face_ids", face_ids, torch.int32),
         _cuda.check("counts", counts, torch.int32, (runs,)),
         _cuda.check("state", state, torch.float32),
-        runs, slots, num_tiles, tiles_x, tile_h, tile_w, chunk, width_d,
-        channels, 2.0 / width, 2.0 / height, _cuda.stream())
+        runs, slots, num_tiles, tiles_x, tile_h, tile_w, width_d, channels,
+        height, width, 2.0 / width, 2.0 / height, *shape, _cuda.stream())
     return state
 
 

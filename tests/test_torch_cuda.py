@@ -9,8 +9,9 @@ The checks are chip_smoke.py's, at small shapes: the hit plane, the
 sweeps' states (the slot sweep K5b's and the resident sweep K5's also
 equal to K1's; K1 and K5b also on runs of 0, 1, 121 and more visits than
 their visit list, on exact depth ties, each equal to itself in two
-calls; K8 on lists of 0, 1, 301 and 3,728 faces, K5 with every group
-empty, zoomed and at 1,536 faces), the fused sweep-and-shade outputs and
+calls; K8 and K7 on lists of 0, 1, 301 and 3,728 faces, K5 with every
+group empty, zoomed and at 1,536 faces; K4 on both packs' tables at
+dilate 0 and 1 and a ragged cut), the fused sweep-and-shade outputs and
 the plane stack
 (also with the diagonal dilation) bitwise, the reductions' rows within
 1e-5 (normalised; the slot reduction K6's equal to K3's; K9 also at
@@ -383,12 +384,25 @@ def test_slot_and_resident_sweeps_equal_k1(device, channels):
 
 
 def test_pallas_raster_edge_lists(device):
-    # K8 on the run walk: lists of 0, 1, 301 and 3,728 faces (more than
-    # the visit list and the staging area hold) on a 4,096-face image; ==
-    # its plain version bit for bit and in two calls.
+    # K8 and K7 on the run walk: lists of 0, 1, 301 and 3,728 faces (more
+    # than the visit list and the staging area hold) on a 4,096-face
+    # image; each == its plain version bit for bit and in two calls, K7's
+    # pixels == K8's.
     listed = chip_smoke.check_list_walk(
         "edge", chip_smoke.bench_scene(1, 64, 512, device))
     assert listed == [3728, 301, 1]
+
+
+def test_hit_plane_tile_loop(device):
+    # K4's face-resident tile loop on the forward and the gradient packs'
+    # tables (dilate 0 and 1, with and without the edge cull) and on a
+    # ragged cut (3 images, 300 faces, 7 x 7 tiles) and on 70,000 images
+    # of 5 faces (past a grid's 65,535 in y or z): == its plain version bit
+    # for bit.
+    chip_smoke.check_hit_plane(
+        {"bench": chip_smoke.bench_scene(2, 64, 16, device),
+         "crossing": chip_smoke.crossing_scene(device, size=100)},
+        chip_smoke.bench_scene(4, 100, 64, device))
 
 
 def test_resident_walk(device):

@@ -1,10 +1,11 @@
-"""The run walk of K8 pallas_raster and K5 resident_sweep, on the CPU.
+"""The run walk of K7 dense_sweep, K8 pallas_raster and K5 resident_sweep,
+on the CPU.
 
-Both kernels now sweep with sweep_math.cuh's sweep_run, K1's walk
+The three kernels sweep with sweep_math.cuh's sweep_run, K1's walk
 (tests/test_torch_sweep_split.py holds its argument for the block
-schedule).  K8 deals a tile's face list to S face groups (list entry v
-to group v mod S), sweeps each group's share into its own winners and
-combines them in group order by the lexicographic (depth, original
+schedule).  K7 and K8 deal a tile's face list to S face groups (list
+entry v to group v mod S), sweep each group's share into its own winners
+and combine them in group order by the lexicographic (depth, original
 index) test; a face is tested only where its pixel bbox holds the pixel.
 K5 stages the image's table once for a block of RESIDENT_TILES tiles
 that holds a visit, and sweeps each tile as K1 does.  Here, on the plain
@@ -15,7 +16,12 @@ side:
     kernel's order and in every other order, against _visibility_plain
     over the whole lists, on a camera-crossing soup and the 100x100 bench
     scene;
-  * its cull: each _visibility_plain winner's pixel bbox holds its pixel,
+  * K7's: each group's share swept by forward_dense.dense_sweep_plain one
+    listed face a visit (no live-chunk tail), the groups' states combined
+    in the kernel's order, against dense_sweep_plain over the whole lists
+    in every state row, the pixels of the padded tile grid past the image
+    edge included; its winners are _visibility_plain's;
+  * the cull: each _visibility_plain winner's pixel bbox holds its pixel,
     past the image edge too (the pixel clamped to the image, as the bbox
     is);
   * K5's blocks: resident_sweep_plain's state does not depend on the
@@ -134,6 +140,55 @@ def test_list_groups_combine_to_the_plain_winners(name):
                 assert torch.equal(g, w), (parts, order)
 
 
+def _combine_states(states, order, channels):
+    """combine_groups on whole states [R, C+9, PIX]: the first group's
+    pixels take each other group's state where its winner is nearer, or
+    as near with a smaller original index."""
+    state = states[order[0]]
+    for g in order[1:]:
+        other = states[g]
+        d, o = other[:, channels + 7], other[:, channels + 8]
+        depth, orig = state[:, channels + 7], state[:, channels + 8]
+        better = (d < depth) | ((d == depth) & (o < orig))
+        state = torch.where(better[:, None], other, state)
+    return state
+
+
+@pytest.mark.parametrize("name", LISTS)
+def test_dense_groups_combine_to_the_plain_state(name):
+    args, (depth, orig, _) = _list_inputs(name)
+    table, face_ids, counts, height, width, tiles_x, num_tiles, th, tw, \
+        chunk = args
+    channels = (table.shape[1] - forward_pallas._BASE) // 3
+    geometry = (channels, height, width, tiles_x, num_tiles, th, tw)
+    want = forward_dense.dense_sweep_plain(table, face_ids, counts,
+                                           *geometry, chunk)
+    # dense_sweep_plain picks _visibility_plain's winners, past the image
+    # edge too, so the cull's premise (test_list_winners_lie_in_their_bbox)
+    # is K7's.
+    assert torch.equal(want[:, channels + 7], depth)
+    assert torch.equal(want[:, channels + 8], orig)
+    groups = forward_blocks.sweep_shape(th * tw, 1, H100_OPTIN).groups
+    # Group g's share, one listed face a visit (chunk 1: only the listed
+    # entries, as the kernel tests them).
+    states = [forward_dense.dense_sweep_plain(
+        table, face_ids[:, g::groups].contiguous(),
+        ((counts - g + groups - 1) // groups).clamp(min=0), *geometry, 1)
+        for g in range(groups)]
+    got = _combine_states(states, range(groups), channels)
+    assert torch.equal(got, want)
+    # The padded grid overhangs the 100-pixel images: the rows and columns
+    # past the edge are in the state, and on the soup some are covered.
+    runs, pix = depth.shape
+    tile = torch.arange(runs) % num_tiles
+    p = torch.arange(pix)
+    past = ((((tile // tiles_x) * th)[:, None] + p // tw >= height)
+            | (((tile % tiles_x) * tw)[:, None] + p % tw >= width))
+    assert bool(past.any())
+    if name.startswith("crossing"):
+        assert bool((orig[past] >= 0).any())
+
+
 @pytest.mark.parametrize("name", LISTS)
 def test_list_winners_lie_in_their_bbox(name):
     args, (_, _, row) = _list_inputs(name)
@@ -248,18 +303,33 @@ def test_list_walk_constants_mirror_the_kernels():
     assert re.search(rf"constexpr int kResidentTiles = "
                      rf"{forward_blocks.RESIDENT_TILES};", resident)
     pallas = (CSRC / "pallas_raster.cu").read_text()
-    for kernel in (pallas, resident):
+    dense = (CSRC / "dense_sweep.cu").read_text()
+    for kernel in (pallas, resident, dense):
         assert "dirt::sweep_run(" in kernel
         assert "__launch_bounds__(kMaxThreads, kMinBlocks)" in kernel
         assert "threads <= dirt::kSweepThreads" in kernel
         assert "dirt::kSweepBlocks>" in kernel and "<1024, 1>" in kernel
-    assert "dirt::StagedFaces<true>{table, 1, width_d}" in pallas
-    # K7 alone still walks its lists with sweep_list.
-    callers = [path.name for path in sorted(CSRC.glob("*.cu"))
-               if "sweep_list(" in path.read_text()]
-    assert callers == ["dense_sweep.cu"]
+    for kernel in (pallas, dense):
+        assert "dirt::CsrFill fill{" in kernel
+        assert "dirt::StagedFaces<true>{table, 1, width_d}" in kernel
+    assert "dirt::StateEpilogue out{" in dense
+    # K7 was the last caller of the one-thread-a-pixel list walk: every
+    # forward sweep is on sweep_run, and sweep_list is gone.
+    assert not [path.name for path in sorted(CSRC.glob("*.cu*"))
+                if "sweep_list" in path.read_text()]
     assert forward_pallas.PALLAS_RASTER.argtypes.count(_cuda.i32) == 16
+    assert forward_dense.DENSE_SWEEP.argtypes.count(_cuda.i32) == 16
     assert forward_blocks.RESIDENT_SWEEP.argtypes.count(_cuda.i32) == 17
+    # K4's launch shape (faces a block, tiles a block), from which its
+    # launcher sizes the grid, and its geometry arguments (no grid).
+    hit = (CSRC / "hit_plane.cu").read_text()
+    assert re.search(rf"constexpr int kHitFaces = "
+                     rf"{forward_blocks.HIT_FACES};", hit)
+    assert re.search(rf"constexpr int kHitTiles = "
+                     rf"{forward_blocks.HIT_TILES};", hit)
+    assert "(num_faces + kHitFaces - 1) / kHitFaces" in hit
+    assert "(num_tiles + kHitTiles - 1) / kHitTiles" in hit
+    assert forward_blocks.HIT_PLANE.argtypes.count(_cuda.i32) == 13
 
 
 def test_device_kernel_names():

@@ -298,7 +298,8 @@ def test_sweep_constants_mirror_the_kernels():
         assert re.search(rf"constexpr int {name} = {value};", text), name
     # test_face reads table columns 0-19, the bbox cull 20-23 (the
     # forward_blocks._BBOX columns): the staged face.
-    body = text[text.index("void test_face("):text.index("// Walks one")]
+    body = text[text.index("void test_face("):
+                text.index("// Writes the packed state")]
     cols = {int(c) for c in re.findall(r"\bf\[(\d+)\]", body)}
     assert max(cols) == 19
     # The bbox, the last float4 of the staged face.
