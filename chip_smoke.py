@@ -4,7 +4,7 @@
 Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --sweeps-of OTHER_CHECKOUT   # phase 5's sweeps only
+    python3 chip_smoke.py --sweeps-of OTHER_CHECKOUT   # phase 5: sweeps, K11
 
 It drives the port's paths on the bench scene (16 x 256^2, the 512-face
 Gouraud cylinder, loss sum(pixels * weights)) and checks them phase by
@@ -79,6 +79,21 @@ failure:
      h. repro: K11 scalar_accum at the repro's own sizes and on 256 tiles
         x 8 chunks with random counts, within 1e-5 of its plain version
         and within the repro's 1e-3 of its numpy reference;
+     i. models: the renderer models (dirt_tpu_torch.models) at the
+        samples' 640x480, forward and backward on the card: Gouraud on the
+        split cube and on the bench's 512-face cylinder split by face
+        (gradient to the object rotation), deferred Phong on the cube (to
+        the light direction) and textured on samples/textured.py's prism
+        (to the texture and the light; both deferred renderers also
+        differentiate the rotation, so their G-buffer's backward runs);
+        K4, K1, K2 and K3 launched; pixels within 1e-4 of the same model
+        on the CPU, those gradients within 1e-4 of the CPU's max |grad|
+        (Gouraud's where the CPU's rasteriser sees the card's clip and lit
+        values: the occluder dilation's exact compares make the rotation
+        gradient jump with an ulp of the scene math);
+     j. samples: the three samples' fits (dirt_tpu_torch.samples) on the
+        card at 160x120, simple 40 steps, deferred 20, textured 15 (the
+        stripes texture where PIL is missing); each loss must fall;
      Every kernel call a path makes (the deferred path's two-call form
      included) is also recorded and held against its plain version on the
      same inputs, bitwise or within 1e-5 as above; then lines give K1's
@@ -107,7 +122,10 @@ failure:
      non-zero entries) and, for the reductions, their library form (K3,
      K6, K9: the segment sum, per-pixel rows plus torch.index_add; K10:
      the masks built from the same ids and one float32 batched matmul,
-     TF32 off; K11: its masks times its values, one float32 bmm);
+     TF32 off; K11: its masks times its values, one float32 bmm); each
+     renderer model's forward + backward step at 640x480 (phase 4i's
+     scenes), timed and profiled as the paths are; K11 alone at both of
+     its sizes (profiler device ms, CUDA-event ms, bound);
   6. the kernels' JSON line, the card's name and power limit, and last the
      result line {"ok": true, "device": {...}}.
 """
@@ -155,7 +173,12 @@ PATH_KERNELS = {
     "resident": ("hit_plane", "resident_sweep", "grad_prepass",
                  "grad_reduce"),
     "repro": ("scalar_accum",),
+    "models": ("hit_plane", "raster_sweep", "grad_prepass", "grad_reduce"),
+    # a fit whose leaves feed only the shader: the G-buffer's forward
+    "forward": ("hit_plane", "raster_sweep"),
 }
+MODEL_SIZE = (640, 480)       # the samples' image (width, height)
+MODEL_TOL = 1e-4     # card vs CPU: pixels, and gradients / max |grad|
 
 
 def fail(message):
@@ -1647,16 +1670,35 @@ def check_resident_path(scene, large_scene):
     return launches
 
 
-def check_repro(device):
-    """Runs K11 on the repro's sizes and on 256 tiles x 8 chunks with
-    random counts (phase 4h); returns (launches, {name: (kernel call,
-    plain call)}, max |kernel - plain| on the larger, its bound's bytes
-    and operations, its library call)."""
+def accum_instances():
+    """K11's inputs (numpy): the repro's own sizes, and 256 tiles x 8
+    chunks with random counts."""
     from dirt_tpu_torch.repro import scalar_accum as sa
-    instances = {
-        "repro 4 tiles x 2 chunks": sa.repro_inputs(),
-        "256 tiles x 8 chunks": sa.repro_inputs(tiles=256, chunks=8, seed=1,
-                                                random_counts=True)}
+    return {"repro 4 tiles x 2 chunks": sa.repro_inputs(),
+            "256 tiles x 8 chunks": sa.repro_inputs(
+                tiles=256, chunks=8, seed=1, random_counts=True)}
+
+
+def accum_work(planes, ids, counts):
+    """K11's bytes (planes, ids, counts read, rows written, once) and
+    operations (a compare per live row and pixel, the sums of a match)."""
+    tiles, num_ids = ids.shape[0], ids.shape[-1]
+    live = (torch.arange(num_ids, device=ids.device)[None]
+            < counts.reshape(tiles, 1))
+    matches = int(((planes[:, 2].reshape(tiles, 1, -1)
+                    == ids.reshape(tiles, -1, 1)) & live[..., None]).sum())
+    pix = planes[0, 0].numel()
+    return (_nbytes(planes, ids, counts) + tiles * num_ids * 4 * 4,
+            int(live.sum()) * pix * OPS_ACCUM_SCAN
+            + matches * OPS_ACCUM_MATCH)
+
+
+def check_repro(device):
+    """Runs K11 on accum_instances (phase 4h); returns (launches, {name:
+    (kernel call, plain call)}, max |kernel - plain| on the larger, its
+    bound's bytes and operations, its library call)."""
+    from dirt_tpu_torch.repro import scalar_accum as sa
+    instances = accum_instances()
     tensors = {tag: [torch.as_tensor(a, device=device) for a in arrays]
                for tag, arrays in instances.items()}
     outs, launches = counted("repro", lambda: {
@@ -1673,21 +1715,197 @@ def check_repro(device):
         phase("repro", f"{tag}: K11 scalar_accum rel {rel:.2e} vs its plain "
               f"version, max err {err:.2e} vs the numpy reference OK")
     planes, ids, counts = tensors["256 tiles x 8 chunks"]
-    tiles, num_ids = ids.shape[0], ids.shape[-1]
-    live = (torch.arange(num_ids, device=device)[None]
-            < counts.reshape(tiles, 1))
-    matches = int(((planes[:, 2].reshape(tiles, 1, -1)
-                    == ids.reshape(tiles, -1, 1)) & live[..., None]).sum())
-    pix = planes[0, 0].numel()
-    work = (_nbytes(planes, ids, counts) + tiles * num_ids * 4 * 4,
-            int(live.sum()) * pix * OPS_ACCUM_SCAN
-            + matches * OPS_ACCUM_MATCH)
     return (launches,
             (lambda: sa.scalar_accum(planes, ids, counts),
              lambda: sa.scalar_accum_plain(planes, ids, counts, sa.CHUNK)),
             _max_abs(outs["256 tiles x 8 chunks"],
                      sa.scalar_accum_plain(planes, ids, counts, sa.CHUNK)),
-            work, lambda: accum_bmm(planes, ids, counts, sa.CHUNK))
+            accum_work(planes, ids, counts),
+            lambda: accum_bmm(planes, ids, counts, sa.CHUNK))
+
+
+def time_accum(device, card_line):
+    """K11 on accum_instances: profiler device ms and CUDA-event ms (median
+    of STEPS), beside its bound."""
+    from dirt_tpu_torch.repro import scalar_accum as sa
+    for tag, arrays in accum_instances().items():
+        planes, ids, counts = (torch.as_tensor(a, device=device)
+                               for a in arrays)
+        run = lambda: sa.scalar_accum(planes, ids, counts)
+        ms, by = bound(*accum_work(planes, ids, counts))
+        phase("timing", f"K11 scalar_accum on {tag}: "
+              f"{device_time(run, 'scalar_accum'):.4f} ms device, "
+              f"{time_ms(run, STEPS):.4f} ms CUDA events, bound {ms:.6f} ms "
+              f"({by}) on {card_line}")
+
+
+# --------------------------------------------------------------------------
+# Renderer models and samples
+# --------------------------------------------------------------------------
+
+def model_cases():
+    """Phase 4i's renderers at MODEL_SIZE (numpy scenes, seeded): {tag:
+    (model, render arguments, indices of the arguments differentiated,
+    indices of those whose gradients are held against the CPU's)}: the
+    deferred renderers also differentiate the object rotation, so that
+    their G-buffer's backward (K2, K3) runs;
+    Gouraud on the split cube (samples/simple.py's scene) and on the
+    bench's 512-face cylinder split by face, deferred Phong on the cube
+    (samples/deferred.py's light), textured on samples/textured.py's
+    prism, stripes texture and camera."""
+    from dirt_tpu_torch import lighting, models
+    from dirt_tpu_torch.samples import textured
+    from dirt_tpu_torch.utils import meshes
+    split = lambda v, f: tuple(
+        x.numpy() for x in lighting.split_vertices_by_face(v, f,
+                                                           device="cpu"))
+    cube_v, cube_f = split(*meshes.build_cube())
+    cyl_v, cyl_f = split(*meshes.make_cylinder(0.5, 1.0, 0.1, 0.2, 64))
+    albedo = np.random.RandomState(2).uniform(
+        0.2, 1.0, size=cyl_v.shape).astype(np.float32)
+    light = np.array([1., -0.3, -0.5], np.float32)
+    light /= np.linalg.norm(light)
+    prism_v, prism_uv, prism_f = textured.icosahedron_like_prism()
+    width, height = MODEL_SIZE
+    f32 = lambda x: np.asarray(x, np.float32)
+    return {
+        "gouraud cube": (
+            models.GouraudRenderer(width, height),
+            [cube_v, cube_f, np.ones_like(cube_v), f32([0., 0.5, 0.])],
+            (3,), (3,)),
+        "gouraud cylinder 512f": (
+            models.GouraudRenderer(width, height),
+            [cyl_v, cyl_f, albedo, f32([0.3, 0.5, 0.1])], (3,), (3,)),
+        "phong cube": (
+            models.DeferredPhongRenderer(width, height),
+            [cube_v, cube_f, np.ones_like(cube_v), f32([0., 0.5, 0.]),
+             light], (3, 4), (4,)),
+        "textured prism": (
+            models.TexturedRenderer(width, height, camera=models.Camera(
+                translation=(0., -0.4, -4.0), rotation=(-0.35, 0., 0.))),
+            [prism_v, prism_f, prism_uv, textured.stripes_texture(),
+             f32([0.2, 0.7, 0.]), light], (3, 4, 5), (3, 5)),
+    }
+
+
+def model_weights(device):
+    width, height = MODEL_SIZE
+    return torch.as_tensor(np.random.RandomState(3).uniform(
+        0.5, 1.5, size=(height, width, 3)).astype(np.float32), device=device)
+
+
+def model_args(arrays, grads, device):
+    """The render arguments as tensors on `device`: faces int32, the rest
+    float32, those at `grads` leaves that require grad."""
+    return [torch.tensor(a, device=device, requires_grad=i in grads)
+            if i in grads else torch.as_tensor(
+                a, device=device,
+                dtype=torch.int32 if a.dtype.kind == "i" else torch.float32)
+            for i, a in enumerate(arrays)]
+
+
+def model_step(model, arrays, grads, weights):
+    """One forward + backward of `model` on `arrays` (on weights' device);
+    returns (pixels, [gradient of each argument in grads])."""
+    args = model_args(arrays, grads, weights.device)
+    pixels = model.render(*args)
+    (pixels * weights).sum().backward()
+    return pixels.detach(), [args[i].grad for i in grads]
+
+
+def gouraud_reference(model, arrays, grads, weights, clip, lit):
+    """The Gouraud rotation gradient on the CPU where the rasteriser sees
+    the card's clip and lit values (x + (value - x).detach()), the
+    derivative the CPU's: the occluder dilation's axis is an exact compare
+    of Scharr magnitudes, which an ulp of the scene math can flip."""
+    import dirt_tpu_torch
+    args = model_args(arrays, grads, "cpu")
+    background, clip_cpu, lit_cpu, faces = model.scene(*args)
+    values = clip_cpu.detach(), lit_cpu.detach()
+    scale = lambda x: max(float(x.abs().max()), 1.0)
+    for name, got, want in zip(("clip", "lit"), (clip, lit), values):
+        err = _max_abs(got.cpu(), want) / scale(want)
+        if not err <= 1e-5:
+            fail(f"models: the card's {name} values differ from the CPU's "
+                 f"by {err}")
+    clip_cpu = clip_cpu + (clip.cpu() - clip_cpu).detach()
+    lit_cpu = lit_cpu + (lit.cpu() - lit_cpu).detach()
+    pixels = dirt_tpu_torch.rasterise(background, clip_cpu, lit_cpu, faces,
+                                      backend=model.backend)
+    (pixels * weights.cpu()).sum().backward()
+    return [args[i].grad for i in grads]
+
+
+def check_models(device):
+    """Drives each renderer of model_cases on the card, forward and
+    backward (phase 4i): the launch counters show K4, K1, K2 and K3; each
+    recorded kernel call == (K3: within ROW_TOL) its plain version; pixels
+    within MODEL_TOL of the same model on the CPU, the compared gradients
+    within MODEL_TOL of the CPU's max |grad| (Gouraud's rotation gradient
+    against gouraud_reference).  Returns {tag: launches}."""
+    from dirt_tpu_torch import models
+    weights = model_weights(device)
+    out = {}
+    for tag, (model, arrays, grads, compared) in model_cases().items():
+        with recording() as calls:
+            (pixels, got), launches = counted("models", lambda: model_step(
+                model, arrays, grads, weights))
+        shapes = check_recorded(tag, "models", calls)
+        if isinstance(model, models.GouraudRenderer):
+            with torch.no_grad():
+                want_px = model.render(*model_args(arrays, (), "cpu"))
+                _, clip, lit, _ = model.scene(*model_args(arrays, (),
+                                                          device))
+            want = gouraud_reference(model, arrays, grads, weights, clip,
+                                     lit)
+        else:
+            want_px, want = model_step(model, arrays, grads, weights.cpu())
+        err = _max_abs(pixels.cpu(), want_px)
+        if not (err <= MODEL_TOL and bool(torch.isfinite(pixels).all())):
+            fail(f"{tag}: pixels differ from the CPU's by {err}")
+        errors = []
+        for i, g, w in zip(grads, got, want, strict=True):
+            if i not in compared:
+                continue
+            rel = _max_abs(g.cpu(), w) / float(w.abs().max())
+            if not (rel <= MODEL_TOL and bool(torch.isfinite(g).all())):
+                fail(f"{tag}: the gradient of argument {i} differs from the "
+                     f"CPU's by {rel} of its max")
+            errors.append(f"{rel:.2e}")
+        phase("models", f"{tag} {MODEL_SIZE[0]}x{MODEL_SIZE[1]}: launches "
+              f"{launches}; each kernel call == (K3 within {ROW_TOL}) its "
+              f"plain version {shapes}; pixels within {err:.2e} of the "
+              f"CPU's, gradients (arguments {compared}) within {errors} of "
+              f"their max")
+        out[tag] = launches
+    return out
+
+
+def check_samples(device):
+    """Runs the three samples' fits on the card (phase 4j): simple 40
+    steps, deferred 20, textured 15, at 160x120; each must end on a finite
+    loss below its first.  Returns {sample: launches}."""
+    from dirt_tpu_torch.samples import deferred, simple, textured
+    quiet = lambda *_: None
+    # The simple fit's rotation reaches the rasteriser's backward; the
+    # others' light and texture only the shader.
+    fits = {
+        "simple": ("models", lambda: simple.fit(device=device, log=quiet)),
+        "deferred": ("forward",
+                     lambda: deferred.fit(device=device, log=quiet)),
+        "textured": ("forward", lambda: textured.fit(
+            textured.photo_texture(log=lambda m: phase("samples", m)),
+            device=device, log=quiet))}
+    out = {}
+    for name, (path, fit) in fits.items():
+        (losses, _), launches = counted(path, fit)
+        first, last = losses[0], losses[-1]
+        if not (np.isfinite(last) and last < first):
+            fail(f"samples: {name}'s loss went from {first} to {last}")
+        phase("samples", f"{name}: {len(losses)} steps, loss {first:.6f} -> "
+              f"{last:.6f}; launches {launches}")
+        out[name] = launches
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1887,9 +2105,9 @@ def sweep_scenes(scene, zoom_scene, large_scene, scene_1536):
 
 
 def sweeps_of(tree):
-    """`--sweeps-of TREE`: time_sweeps alone, on the dirt_tpu_torch package
-    of checkout TREE (another commit's: two commits compared on one card
-    by the same timing code)."""
+    """`--sweeps-of TREE`: time_sweeps and time_accum alone, on the
+    dirt_tpu_torch package of checkout TREE (another commit's: two commits
+    compared on one card by the same timing code)."""
     sys.path.insert(0, os.path.abspath(tree))
     import dirt_tpu_torch
     if not os.path.abspath(dirt_tpu_torch.__file__).startswith(
@@ -1897,12 +2115,13 @@ def sweeps_of(tree):
         fail(f"dirt_tpu_torch was not imported from {tree}")
     device = torch.device("cuda", 0)
     card_line = card()
-    phase("timing", f"the sweeps of {dirt_tpu_torch.__file__}")
+    phase("timing", f"the sweeps and K11 of {dirt_tpu_torch.__file__}")
     time_sweeps(sweep_scenes(
         bench_scene(16, 256, 64, device),
         bench_scene(16, 256, 64, device, right=0.05),
         bench_scene(1, 256, 1024, device),
         bench_scene(16, 256, 192, device)), card_line)
+    time_accum(device, card_line)
 
 
 def bound(nbytes, ops, peak_ops_per_ms=PEAK_OPS_PER_MS):
@@ -1984,6 +2203,8 @@ def main():
         info["work"]["scalar_accum"], info["libraries"]["scalar_accum"] = \
         check_repro(device)
     path_launches.append(repro_launches)
+    model_launches = check_models(device)
+    sample_launches = check_samples(device)
     for counts in path_launches:
         for name, n in counts.items():
             launches.setdefault(name, n)
@@ -2034,17 +2255,24 @@ def main():
         "slots direct": lambda: slots_step(scene),
         "resident direct": lambda: resident_step(scene),
     }
+    sizes = dict.fromkeys(paths, "16x256^2, 512 faces")
+    weights = model_weights(device)
+    for tag, (model, arrays, grads, _) in model_cases().items():
+        name = f"model {tag}"
+        paths[name] = (lambda model=model, arrays=arrays, grads=grads:
+                       model_step(model, arrays, grads, weights))
+        sizes[name] = f"{MODEL_SIZE[0]}x{MODEL_SIZE[1]}"
     steps = {name: time_ms(run, STEPS) for name, run in paths.items()}
     for name, run in paths.items():
         device_ms, n_kernels, top, reductions = device_profile(
             run, PROFILE_STEPS)
-        device, busy = "not measured", "not measured"
+        per_step, busy = "not measured", "not measured"
         if device_ms is not None:
-            device = f"{device_ms:.4f} ms/step"
+            per_step = f"{device_ms:.4f} ms/step"
             busy = f"{device_ms / steps[name]:.3f}"
         reduced = ", ".join(f"{label} {ms:.4f}"
                             for label, ms in reductions.items())
-        phase("profile", f"{name}: device {device} (torch.profiler, "
+        phase("profile", f"{name}: device {per_step} (torch.profiler, "
               f"{PROFILE_STEPS} steps), busy share {busy} of the "
               f"{steps[name]:.4f} ms step, "
               f"{n_kernels:.0f} device kernels/step, largest {top}, "
@@ -2077,10 +2305,13 @@ def main():
               f"on {card_line}")
     time_sweeps(sweep_scenes(scene, zoom_scene, large_scene, scene_1536),
                 card_line)
+    time_accum(device, card_line)
     for name, ms in steps.items():
-        phase("timing", f"{name} step fwd+bwd 16x256^2, 512 faces: median "
+        phase("timing", f"{name} step fwd+bwd {sizes[name]}: median "
               f"{ms:.4f} ms/step over {STEPS} steps on {card_line}")
     phase("timing", f"deferred launches per step: {deferred_launches}")
+    phase("timing", f"model launches per step: {model_launches}; sample "
+          f"fits' launches: {sample_launches}")
 
     # 6. Result
     missing = sorted(set(_cuda.KERNELS) - {k["name"] for k in kernels})

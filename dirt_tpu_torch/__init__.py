@@ -12,10 +12,11 @@ device="cpu".  It never imports jax.
 
 Public entry points: rasterise, rasterise_batch, rasterise_batch_with_aux,
 rasterise_deferred, rasterise_batch_deferred, rasterise_grad_debug, plus
-the ``matrices`` helper module.
+the helper modules ``matrices``, ``projection`` and ``lighting``
+(``models`` holds the renderer pipelines, ``samples`` the sample programs).
 """
 
-from . import matrices
+from . import lighting, matrices, projection
 from .rasterise_ops import (rasterise, rasterise_batch,
                             rasterise_batch_deferred,
                             rasterise_batch_with_aux, rasterise_deferred,
@@ -29,6 +30,8 @@ __all__ = [
     "rasterise_batch_deferred",
     "rasterise_grad_debug",
     "matrices",
+    "projection",
+    "lighting",
 ]
 
 __version__ = "0.1.0"

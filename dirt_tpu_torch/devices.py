@@ -38,3 +38,9 @@ def input_device(values, device=None):
 def _same(wanted, actual):
     return wanted.type == actual.type and (
         wanted.index is None or wanted.index == actual.index)
+
+
+def as_f32(x, device):
+    """`x` as a float32 tensor on `device` (a tensor already there keeps
+    its autograd graph)."""
+    return torch.as_tensor(x, dtype=torch.float32, device=device)

@@ -13,21 +13,17 @@ and without one to the CUDA card (see dirt_tpu_torch/devices.py).
 
 import torch
 
-from .devices import input_device
+from .devices import as_f32, input_device
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-
-
-def _f32(x, device):
-    return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
 def rodrigues(vectors, three_by_three=False, device=None):
     """Angle-axis rotation matrices from [*, 3] vectors (direction = axis,
     length = angle in radians); returns [*, D, D] with D = 3 or 4."""
     # + 1e-12 keeps the derivative finite at zero.
-    vectors = _f32(vectors, input_device([vectors], device)) + 1.e-12
+    vectors = as_f32(vectors, input_device([vectors], device)) + 1.e-12
     norms = torch.linalg.norm(vectors, dim=-1, keepdim=True)   # [*, 1]
     units = vectors / norms
     norms = norms[..., 0]
@@ -52,7 +48,7 @@ def rodrigues(vectors, three_by_three=False, device=None):
 
 def translation(x, device=None):
     """Translation matrices [*, 4, 4] from [*, 3] displacements."""
-    x = _f32(x, input_device([x], device))
+    x = as_f32(x, input_device([x], device))
     zeros = torch.zeros_like(x[..., 0])
     ones = torch.ones_like(zeros)
     return torch.stack([
@@ -65,7 +61,7 @@ def translation(x, device=None):
 
 def scale(x, device=None):
     """Scaling matrices [*, 4, 4] from [*, 3] scale factors."""
-    x = _f32(x, input_device([x], device))
+    x = as_f32(x, input_device([x], device))
     diag = torch.cat([x, torch.ones_like(x[..., :1])], dim=-1)
     return diag[..., :, None] * torch.eye(4, dtype=torch.float32,
                                           device=x.device)
@@ -75,7 +71,7 @@ def perspective_projection(near, far, right, aspect, device=None):
     """OpenGL-convention perspective projection matrices [*, 4, 4]
     (right-multiplying row vectors); all parameters broadcast together."""
     device = input_device([near, far, right, aspect], device)
-    near, far, right, aspect = (_f32(a, device)
+    near, far, right, aspect = (as_f32(a, device)
                                 for a in (near, far, right, aspect))
     top = right * aspect
     near, far, top, right = torch.broadcast_tensors(near, far, top, right)
@@ -93,7 +89,7 @@ def perspective_projection(near, far, right, aspect, device=None):
 
 def pad_3x3_to_4x4(matrix, device=None):
     """Pads a [*, 3, 3] transform to a [*, 4, 4] homogeneous transform."""
-    matrix = _f32(matrix, input_device([matrix], device))
+    matrix = as_f32(matrix, input_device([matrix], device))
     return torch.cat([
         torch.cat([matrix, torch.zeros_like(matrix[..., :, :1])], dim=-1),
         torch.cat([torch.zeros_like(matrix[..., :1, :]),
@@ -107,7 +103,7 @@ def compose(*matrices, device=None):
     device = input_device(matrices, device)
     if not matrices:
         return torch.eye(4, dtype=torch.float32, device=device)
-    result = _f32(matrices[0], device)
+    result = as_f32(matrices[0], device)
     for m in matrices[1:]:
-        result = result @ _f32(m, device)
+        result = result @ as_f32(m, device)
     return result

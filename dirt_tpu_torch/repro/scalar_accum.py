@@ -15,6 +15,11 @@ scalar_accum runs it as the CUDA kernel K11 on CUDA tensors (the wrapper
 zero-fills the output, the kernel adds into it) and as its plain version,
 a vectorised port of the repro's `reference`, on CPU tensors.
 repro_inputs builds the repro's inputs from a numpy seed.
+
+K11 takes a block of ACCUM_WARPS warps per tile (csrc/scalar_accum.cu's
+kAccumWarps), warp w the tile's live rows w, w + ACCUM_WARPS, ..., over
+the tile's pixels in passes of 32 * ACCUM_IDS_PER_LANE (kIdsPerLane: the
+pixel ids a lane holds in registers).
 """
 
 import numpy as np
@@ -27,10 +32,12 @@ CHUNK = 16
 TILES = 4
 CHUNKS = 2
 D = 4
+ACCUM_WARPS = 16
+ACCUM_IDS_PER_LANE = 32
 
 SCALAR_ACCUM = _cuda.Kernel(
     "scalar_accum", "dirt_scalar_accum",
-    [_cuda.ptr] * 4 + [_cuda.i32] * 5 + [_cuda.ptr],
+    [_cuda.ptr] * 4 + [_cuda.i32] * 3 + [_cuda.ptr],
     replaces="repro/mosaic_scalar_smem_accum.py:55",
     source="scalar_accum.cu")
 
@@ -98,5 +105,5 @@ def scalar_accum(planes, ids, counts, chunk=CHUNK):
         _cuda.check("ids", ids, torch.float32),
         _cuda.check("counts", counts, torch.int32, (tiles,)),
         _cuda.check("out", out, torch.float32),
-        tiles, chunks, planes.shape[-1], num_ids, chunk, _cuda.stream())
+        tiles, planes.shape[-1], num_ids, _cuda.stream())
     return out

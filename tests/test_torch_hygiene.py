@@ -12,7 +12,9 @@
 * CPU tensors run the plain versions; tensors on any other non-CUDA device
   raise instead of falling back.
 * Entry points given numpy inputs run on the card: without one they
-  raise, unless the caller asks for the CPU with device="cpu".
+  raise, unless the caller asks for the CPU with device="cpu" (the
+  rasteriser's, matrices', lighting's, projection's, textures' and a
+  renderer model's).
 """
 
 import ast
@@ -44,7 +46,12 @@ def test_import_leaves_jax_out():
             "dirt_tpu_torch.ops.forward_pallas, dirt_tpu_torch.ops.grad_mxu, "
             "dirt_tpu_torch.ops.dispatch, dirt_tpu_torch.devices, "
             "dirt_tpu_torch.repro.scalar_accum, "
-            "dirt_tpu_torch.utils.convert, dirt_tpu_torch.utils.oracle; "
+            "dirt_tpu_torch.utils.convert, dirt_tpu_torch.utils.oracle, "
+            "dirt_tpu_torch.lighting, dirt_tpu_torch.projection, "
+            "dirt_tpu_torch.models, dirt_tpu_torch.utils.textures, "
+            "dirt_tpu_torch.utils.profiling, dirt_tpu_torch.samples.simple, "
+            "dirt_tpu_torch.samples.deferred, "
+            "dirt_tpu_torch.samples.textured; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
             "if m.startswith('jax'))")
     subprocess.run([sys.executable, "-c", code], check=True, env=_env(),
@@ -233,9 +240,12 @@ def _numpy_scene():
 
 def _entry_points(bg, v, c, f, **kw):
     import dirt_tpu_torch
-    from dirt_tpu_torch import matrices
+    from dirt_tpu_torch import lighting, matrices, models, projection
+    from dirt_tpu_torch.utils import textures
     batch = lambda a: a[None]
     shade = lambda gb: gb * 2.0
+    normals = c / np.linalg.norm(c, axis=-1, keepdims=True)
+    light = np.array([0.6, -0.8, 0.], np.float32)
     return [
         lambda: dirt_tpu_torch.rasterise(bg, v, c, f, **kw),
         lambda: dirt_tpu_torch.rasterise_batch(*map(batch, (bg, v, c, f)),
@@ -251,10 +261,33 @@ def _entry_points(bg, v, c, f, **kw):
         lambda: matrices.compose(matrices.translation([1., 2., 3.], **kw),
                                  matrices.scale(np.ones(3), **kw)),
         lambda: matrices.rodrigues([0.1, 0.2, 0.3], **kw),
+        lambda: lighting.vertex_normals(v, f, **kw),
+        lambda: lighting.vertex_normals_pre_split(v, f, **kw),
+        lambda: lighting.split_vertices_by_face(v, f, **kw)[0],
+        lambda: lighting.diffuse_directional(normals, c, light, [1., 1., 1.],
+                                             **kw),
+        lambda: lighting.specular_directional(
+            v[:, :3], normals, c, light, [1., 1., 1.], [0., 0., 3.], 6.,
+            **kw),
+        lambda: lighting.diffuse_point(v[:, :3], normals, c, [0., 2., 0.],
+                                       [1., 1., 1.], **kw),
+        lambda: projection.unproject_pixels_to_rays(
+            bg[..., :2] * 10., np.eye(4, dtype=np.float32), [12, 8], **kw)[1],
+        lambda: textures.uvs_to_pixel_indices(c[:, :2], (8, 12), **kw),
+        lambda: textures.sample_texture(bg, c[:, :2] * 8., **kw),
+        lambda: models.GouraudRenderer(12, 8).render(
+            v[:, :3], f, c, [0., 0.5, 0.], **kw),
     ]
 
 
-@pytest.mark.parametrize("entry", range(9))
+ENTRY_POINTS = 19
+
+
+def test_entry_point_cases_are_counted():
+    assert len(_entry_points(*_numpy_scene())) == ENTRY_POINTS
+
+
+@pytest.mark.parametrize("entry", range(ENTRY_POINTS))
 def test_numpy_inputs_go_to_the_card(entry):
     if torch.cuda.is_available():
         pytest.skip("checks the refusal on a machine without CUDA")
@@ -263,7 +296,7 @@ def test_numpy_inputs_go_to_the_card(entry):
         call()
 
 
-@pytest.mark.parametrize("entry", range(9))
+@pytest.mark.parametrize("entry", range(ENTRY_POINTS))
 def test_numpy_inputs_run_on_the_cpu_when_asked(entry):
     out = _entry_points(*_numpy_scene(), device="cpu")[entry]()
     assert out.device.type == "cpu" and bool(torch.isfinite(out).all())

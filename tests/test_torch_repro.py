@@ -14,6 +14,7 @@ compute the same rows.
 
 import importlib.util
 import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -114,3 +115,55 @@ def test_ids_must_split_into_chunks():
     planes, ids, counts = scalar_accum.repro_inputs()
     with pytest.raises(ValueError):
         _rows(planes, ids[..., :30], counts)
+
+
+def test_launch_constants_mirror_the_kernel():
+    text = (REPO / "dirt_tpu_torch" / "csrc" / "scalar_accum.cu").read_text()
+    for name, value in (("kAccumWarps", scalar_accum.ACCUM_WARPS),
+                        ("kIdsPerLane", scalar_accum.ACCUM_IDS_PER_LANE)):
+        assert re.search(rf"constexpr int {name} = {value};", text), name
+
+
+def _kernel_walk(planes, ids, counts, chunk):
+    """K11's schedule on the CPU: a tile's live rows dealt to ACCUM_WARPS
+    warps (row r to warp r mod W, each once), its pixels in passes of 32 *
+    ACCUM_IDS_PER_LANE (the last one ragged, its missing pixels' ids NaN),
+    a lane's partial sums over its pixels lane + 32 k, the lanes combined,
+    each pass's sums added into the zeroed row."""
+    warps, per_lane = scalar_accum.ACCUM_WARPS, scalar_accum.ACCUM_IDS_PER_LANE
+    step = 32 * per_lane
+    tiles = planes.shape[0]
+    planes = planes.reshape(tiles, 3, -1).astype(np.float32)
+    ids = ids.reshape(tiles, -1)
+    pix, num_ids = planes.shape[-1], ids.shape[-1]
+    out = np.zeros((tiles, num_ids, scalar_accum.D), np.float32)
+    owners = np.zeros((tiles, num_ids), np.int64)
+    for t in range(tiles):
+        live = min(int(counts.reshape(-1)[t]), num_ids)
+        for warp in range(warps):
+            for r in range(warp, live, warps):
+                owners[t, r] += 1
+                for base in range(0, pix, step):
+                    seg = np.full((3, step), np.nan, np.float32)
+                    n = min(step, pix - base)
+                    seg[:, :n] = planes[t, :, base:base + n]
+                    a, b, pid = seg.reshape(3, per_lane, 32)
+                    hit = pid == ids[t, r]
+                    # Only a matching pixel loads its a and b.
+                    lane = np.stack([np.where(hit, v, 0.0).sum(0)
+                                     for v in (a, b, a * b, b * a)])
+                    out[t, r] += lane.sum(-1) * np.float32([1, 1, 1, -1])
+    live = np.arange(num_ids)[None] < counts.reshape(tiles, 1)
+    np.testing.assert_array_equal(owners, live.astype(np.int64))
+    return out.reshape(tiles, num_ids // chunk, chunk, scalar_accum.D)
+
+
+@pytest.mark.parametrize("tile_h, tile_w", [(8, 128), (8, 200), (3, 5)])
+def test_kernel_walk_gives_the_plain_rows(tile_h, tile_w):
+    planes, ids, counts = scalar_accum.repro_inputs(
+        tiles=3, chunks=3, chunk=8, tile_h=tile_h, tile_w=tile_w, seed=6,
+        random_counts=True)
+    counts[1, 0, 0, 0] = 0          # a tile that retires at once
+    t = [torch.as_tensor(a) for a in (planes, ids, counts)]
+    _close(_kernel_walk(planes, ids, counts, 8),
+           scalar_accum.scalar_accum_plain(*t, 8).numpy())
