@@ -94,6 +94,23 @@ failure:
      j. samples: the three samples' fits (dirt_tpu_torch.samples) on the
         card at 160x120, simple 40 steps, deferred 20, textured 15 (the
         stripes texture where PIL is missing); each loss must fall;
+     k. sharded (dirt_tpu_torch.parallel, every rank a process started by
+        launch.run_ranks, after the kernels were built once here): the
+        batch-sharded step (the bench over 2 ranks x 8 images) and the
+        face-sharded step (the bench, 256 faces a rank, and the
+        8,192-face cylinder, 4,096 a rank) over gloo at world size 2; the
+        2 x 2 layout (batch x faces) of the bench over gloo at 4; the
+        batch- and face-sharded bench step over NCCL at 1 (and at one rank
+        a card where there are several cards); then dryrun_multichip(2)
+        over gloo.  Every gloo rank shares the one card.  Each rank's
+        pixels == the unsharded blocks render of its images (face-sharded:
+        pixels and every aux field, up to the sign of zero), gradients
+        within 3e-6 (batch) or 3e-5 (faces, normalised) of the unsharded
+        step's, the background gradient of a face-sharded step equal, the
+        winners on both ranks, and K4, K1, K2 and K3 launched on every
+        rank in its step (counters reset just before it, read just after);
+        a rank that raises fails the run; each step's median ms and
+        profiler device ms per rank, with the transport;
      Every kernel call a path makes (the deferred path's two-call form
      included) is also recorded and held against its plain version on the
      same inputs, bitwise or within 1e-5 as above; then lines give K1's
@@ -176,6 +193,9 @@ PATH_KERNELS = {
     "models": ("hit_plane", "raster_sweep", "grad_prepass", "grad_reduce"),
     # a fit whose leaves feed only the shader: the G-buffer's forward
     "forward": ("hit_plane", "raster_sweep"),
+    # dryrun_multichip's passes: the blocks and the dense backend
+    "dryrun": ("hit_plane", "raster_sweep", "dense_sweep", "grad_prepass",
+               "grad_reduce", "dense_grad_reduce"),
 }
 MODEL_SIZE = (640, 480)       # the samples' image (width, height)
 MODEL_TOL = 1e-4     # card vs CPU: pixels, and gradients / max |grad|
@@ -1909,6 +1929,340 @@ def check_samples(device):
 
 
 # --------------------------------------------------------------------------
+# Sharded paths (phase 4k)
+# --------------------------------------------------------------------------
+
+# Face-sharded gradients against the unsharded blocks gradient: the ranks'
+# rows sum in another order (dirt_tpu's tests/test_face_sharding.py).
+SHARD_TOL = 3e-5
+# The parameters of phase 4k's data-parallel fit step: offsets of the
+# bench scene's first three tensors.
+FIT_PARAMS = ("background", "vertices", "colors")
+
+
+def _rank_profile(fn, reps):
+    """torch.profiler's device ms per call of fn() over `reps` calls
+    after one warm-up, profiled again, up to PROFILE_TRIES times in all,
+    until every rank's profile holds device time (the ranks agree through
+    an all_reduce: every rank must make the same calls, as each holds
+    collectives); fails where a rank's never does."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if str(e.device_type).endswith("CUDA"))
+        seen = torch.tensor([int(us > 0)], dtype=torch.int32, device="cuda")
+        torch.distributed.all_reduce(seen, op=torch.distributed.ReduceOp.MIN)
+        if int(seen):
+            return us / 1e3 / reps
+    fail(f"rank {torch.distributed.get_rank()}: no profile of "
+         f"{PROFILE_TRIES} recorded device time on every rank")
+
+
+def _fit_step(mesh, scene):
+    """data_parallel_fit_step's run on `scene` (the global batch, the
+    same on every rank): the parameters are zero offsets of its
+    background, vertices and colours (so the step returns -gradient /
+    size at learning rate 1), the targets its weights; each rank renders
+    its shard of the offset scene (rasterise_batch_sharded)."""
+    from dirt_tpu_torch.parallel import sharding
+    params = sharding.replicated(mesh, {
+        name: torch.zeros_like(x) for name, x in zip(FIT_PARAMS, scene)})
+    faces, targets = sharding.batch_sharded(mesh, scene[3:5])
+
+    def render_fn(p, shard):
+        local = sharding.batch_sharded(
+            mesh, [x + p[name] for name, x in zip(FIT_PARAMS, scene)])
+        return sharding.rasterise_batch_sharded(mesh, *local, faces)
+    return lambda: sharding.data_parallel_fit_step(
+        mesh, render_fn, params, targets, learning_rate=1.0)
+
+
+def sharded_rank(cases, arrays):
+    """One rank of phase 4k: for each case of `cases` ("batch", "fit",
+    "faces", "faces cylinder", "faces 2x2"; `arrays` {scene: numpy
+    arrays}), the counters reset, one sharded step (the main path: a
+    forward + backward, or for "fit" one data_parallel_fit_step) with
+    every kernel call recorded, the counters read, each recorded call
+    held against its plain version (check_recorded); then the
+    face-sharded forward with aux, the step's median time and its
+    profiler device time.  Returns {"cases": {case: dict}, "entered":
+    the wall clock at entry, "seconds": the work's}."""
+    entered = time.time()
+    from dirt_tpu_torch.ops import _cuda
+    from dirt_tpu_torch.parallel import face_sharding, sharding
+    device = torch.device("cuda", torch.cuda.current_device())
+    world = torch.distributed.get_world_size()
+    tag = (f"{torch.distributed.get_backend()} x{world} rank "
+           f"{torch.distributed.get_rank()}")
+    out = {}
+    for case in cases:
+        scene = [torch.as_tensor(a, device=device)
+                 for a in arrays["cylinder" if "cylinder" in case
+                                 else "bench"]]
+        if case == "fit":
+            run = _fit_step(sharding.make_mesh(world), scene)
+        elif case == "batch":
+            mesh = sharding.make_mesh(world)
+            scene = sharding.batch_sharded(mesh, scene)
+            render = lambda leaves: sharding.rasterise_batch_sharded(
+                mesh, leaves[0], leaves[1], leaves[2], scene[3])
+            weights = scene[4]
+        else:
+            two_d = case == "faces 2x2"
+            mesh = face_sharding.make_face_mesh(
+                world, batch_shards=2 if two_d else None)
+            batch_axis = sharding.BATCH_AXIS if two_d else None
+            render = lambda leaves: face_sharding.rasterise_batch_face_sharded(
+                mesh, leaves[0], leaves[1], leaves[2], scene[3],
+                batch_axis=batch_axis)
+            weights = (sharding.batch_sharded(mesh, scene[4]) if two_d
+                       else scene[4])
+
+        if case != "fit":
+            def run():
+                leaves = [x.detach().clone().requires_grad_(True)
+                          for x in scene[:3]]
+                pixels = render(leaves)
+                (pixels * weights).sum().backward()
+                return pixels.detach(), [x.grad for x in leaves]
+
+        _cuda.reset_counts()
+        with recording() as calls:
+            first = run()
+        torch.cuda.synchronize()
+        launches = {name: _cuda.KERNELS[name].launches
+                    for name in PATH_KERNELS["blocks"]}
+        check_recorded(f"{tag} {case}", "blocks", calls)
+        del calls
+        if case == "fit":
+            result = {"params": first[0], "loss": first[1]}
+        else:
+            result = {"pixels": first[0], "grads": first[1]}
+        result["launches"] = launches
+        if case in ("faces", "faces cylinder"):
+            with torch.no_grad():
+                result["aux"] = face_sharding.\
+                    rasterise_batch_face_sharded_with_aux(mesh, *scene[:4])
+        result["ms"] = time_ms(run, STEPS)
+        result["device_ms"] = _rank_profile(run, PROFILE_STEPS)
+        out[case] = result
+    return {"cases": out, "entered": entered,
+            "seconds": time.time() - entered}
+
+
+def dryrun_rank(n):
+    """One rank of dryrun_multichip(n) on the card (dryrun.rank_passes),
+    with every kernel call recorded and held against its plain version
+    (check_recorded); returns rank_passes' record of each pass."""
+    from dirt_tpu_torch.parallel import dryrun
+    with recording() as calls:
+        passes = dryrun.rank_passes(n, "cuda")
+    check_recorded(f"dryrun rank {torch.distributed.get_rank()}", "dryrun",
+                   calls)
+    return passes
+
+
+def _check_fit(tag, ranks, scene):
+    """Each rank's data_parallel_fit_step against the unsharded step on
+    the whole batch: the new parameters equal on every rank, their
+    gradient (-new at learning rate 1) and the loss within GRAD_TOL
+    (normalised) of the blocks backend's; returns the largest
+    difference."""
+    import dirt_tpu_torch
+    leaves = [x.detach().clone().requires_grad_(True) for x in scene[:3]]
+    rendered = dirt_tpu_torch.rasterise_batch(*leaves, scene[3],
+                                              backend="blocks")
+    loss = torch.sum((rendered - scene[4]) ** 2)
+    grads = torch.autograd.grad(loss, leaves)
+    total = scene[4].numel()
+    want = {"loss": loss.detach() / total}
+    want.update({name: g / total for name, g in zip(FIT_PARAMS, grads)})
+    worst = 0.0
+    for r, res in enumerate(ranks):
+        if r and not all(torch.equal(res["params"][k], ranks[0]["params"][k])
+                         for k in FIT_PARAMS):
+            fail(f"{tag} fit: rank {r}'s new parameters differ from rank 0's")
+        got = {"loss": res["loss"]}
+        got.update({k: -res["params"][k] for k in FIT_PARAMS})
+        for name, w in want.items():
+            g = got[name].to(w.device)
+            err = _max_abs(g, w) / max(float(w.abs().max()), 1e-30)
+            if not (err <= GRAD_TOL and bool(torch.isfinite(g).all())):
+                fail(f"{tag} fit: rank {r}'s {name} differs by {err} > "
+                     f"{GRAD_TOL} (normalised) from the unsharded step's")
+            worst = max(worst, err)
+        idle = [k for k, n in res["launches"].items() if n <= 0]
+        if idle:
+            fail(f"{tag} fit: rank {r} did not launch {idle}")
+    return worst
+
+
+def _check_sharded_case(tag, case, ranks, scene, num_faces):
+    """Holds each rank's result of `case` against the unsharded blocks
+    path on the same images; returns the largest normalised gradient
+    difference."""
+    rank_images = scene[0].shape[0]
+    if case == "batch":
+        rank_images //= len(ranks)
+    elif case == "faces 2x2":
+        rank_images //= 2
+    tol = GRAD_TOL if case == "batch" else SHARD_TOL
+    worst = 0.0
+    for r, res in enumerate(ranks):
+        idle = [k for k, n in res["launches"].items() if n <= 0]
+        if idle:
+            fail(f"{tag} {case}: rank {r} did not launch {idle}")
+        if case == "batch":
+            first = r * rank_images
+        elif case == "faces 2x2":     # ranks [[0, 1], [2, 3]]
+            first = r // 2 * rank_images
+        else:
+            first = 0
+        shard = [x[first:first + rank_images] for x in scene]
+        want_px, want_grads = step(shard, "blocks")
+        got_px = res["pixels"].to(want_px.device)
+        if not torch.equal(got_px, want_px):
+            fail(f"{tag} {case}: rank {r}'s pixels differ from the "
+                 f"unsharded blocks render (max {_max_abs(got_px, want_px)})")
+        got = [g.to(want_px.device) for g in res["grads"]]
+        if case == "faces 2x2":
+            # the leaves are the global tensors: rows of other batch
+            # shards get no gradient
+            rows = slice(first, first + rank_images)
+            if any(bool(g.index_fill(0, torch.arange(
+                    rows.start, rows.stop, device=g.device), 0).any())
+                    for g in got):
+                fail(f"{tag} {case}: rank {r} has gradients outside its "
+                     f"batch shard")
+            got = [g[rows] for g in got]
+        if case != "batch" and not torch.equal(got[0], want_grads[0]):
+            fail(f"{tag} {case}: rank {r}'s grad_background differs")
+        for name, g, w in zip(("grad_background", "grad_vertices",
+                               "grad_vertex_colors"), got, want_grads):
+            err = _max_abs(g, w) / max(float(w.abs().max()), 1.0)
+            if not (err <= tol and bool(torch.isfinite(g).all())):
+                fail(f"{tag} {case}: rank {r}'s {name} differs by {err} > "
+                     f"{tol} (normalised)")
+            worst = max(worst, err)
+        if "aux" in res:
+            import dirt_tpu_torch
+            want = dirt_tpu_torch.rasterise_batch_with_aux(
+                *scene[:4], backend="blocks")
+            got_aux = res["aux"]
+            got_aux = (got_aux[0].to(want_px.device),
+                       type(want[1])(*(f.to(want_px.device)
+                                       for f in got_aux[1])))
+            _check_same_forward(f"{tag} {case} rank {r} with aux", got_aux,
+                                want)
+            ids = got_aux[1].face_index
+            nloc = num_faces // len(ranks)
+            if len(ranks) > 1 and not (bool((ids[ids >= 0] < nloc).any())
+                                       and bool((ids >= nloc).any())):
+                fail(f"{tag} {case}: the winners do not span the ranks")
+    return worst
+
+
+def check_sharded(scene, large_scene, card_line):
+    """Drives the sharded paths (phase 4k) over launch.run_ranks, every
+    rank on the card: the batch-sharded step, the data-parallel fit step
+    and the face-sharded step (bench and 8,192-face cylinder) at world
+    size 2 over gloo, the 2 x 2 layout at 4 over gloo, the batch-sharded,
+    fit and face-sharded bench steps at 1 over NCCL (and at one rank a
+    card, where there are several cards), then dryrun_multichip(2)'s
+    passes.  Every kernel call of a rank's step is held against its
+    plain version in the rank; each rank's pixels == the unsharded blocks
+    render of its images (face-sharded: every aux field too), its
+    gradients within GRAD_TOL (batch, fit) or SHARD_TOL (faces) of the
+    unsharded step's, K4, K1, K2 and K3 launched on every rank.  Returns
+    {run: {rank: launches}}."""
+    from dirt_tpu_torch.parallel import launch
+    numpy = lambda s: [x.cpu().numpy() for x in s]
+    arrays = {"bench": numpy(scene), "cylinder": numpy(large_scene)}
+    scenes = {"bench": scene, "cylinder": large_scene}
+    runs = [("gloo", 2, ("batch", "fit", "faces", "faces cylinder")),
+            ("gloo", 4, ("faces 2x2",)),
+            ("nccl", 1, ("batch", "fit", "faces"))]
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        runs.append(("nccl", cards, ("batch", "fit", "faces")))
+    out = {}
+    for backend, world, cases in runs:
+        t0 = time.time()
+        results = launch.run_ranks(world, sharded_rank, (cases, arrays),
+                                   backend=backend, device="cuda")
+        t1 = time.time()
+        for case in cases:
+            tag = f"{backend} x{world}"
+            name = "cylinder" if "cylinder" in case else "bench"
+            ranks = [r["cases"][case] for r in results]
+            launches = {f"rank {r}": res["launches"]
+                        for r, res in enumerate(ranks)}
+            if case == "fit":
+                worst = _check_fit(tag, ranks, scenes[name])
+                phase("sharded", f"{tag} fit ({name}, {len(ranks)} ranks): "
+                      f"data_parallel_fit_step's new parameters equal on "
+                      f"every rank, their gradient and the loss within "
+                      f"{worst:.2e} <= {GRAD_TOL} of the unsharded step's "
+                      f"(normalised); kernel calls == plain; launches "
+                      f"{launches}")
+            else:
+                worst = _check_sharded_case(
+                    tag, case, ranks, scenes[name], scenes[name][3].shape[1])
+                what = ("pixels and every aux field ==" if case in (
+                    "faces", "faces cylinder") else "pixels ==")
+                tol = GRAD_TOL if case == "batch" else SHARD_TOL
+                phase("sharded", f"{tag} {case} ({name}, {len(ranks)} "
+                      f"ranks): {what} the unsharded blocks render of each "
+                      f"rank's images, gradients within {worst:.2e} <= "
+                      f"{tol}; kernel calls == plain; launches {launches}")
+            times = "; ".join(
+                f"rank {r}: {res['ms']:.4f} ms/step, device "
+                f"{res['device_ms']:.4f} ms/step"
+                for r, res in enumerate(ranks))
+            phase("timing", f"sharded {case} over {backend} at world size "
+                  f"{world} ({name}): {times}; CUDA-event median of "
+                  f"{STEPS} steps, profiler over {PROFILE_STEPS}; "
+                  + ("every rank on cuda:0" if cards == 1 else
+                     "rank r on cuda:r mod cards")
+                  + (", so gloo on one card is not a scaling figure"
+                     if backend == "gloo" and cards == 1 else "")
+                  + f"; on {card_line}")
+            out[f"{tag} {case}"] = launches
+        start = max(r["entered"] for r in results) - t0
+        work = max(r["seconds"] for r in results)
+        phase("sharded", f"{backend} x{world}: {time.time() - t0:.1f} s: "
+              f"ranks started in {start:.1f} s, worked {work:.1f} s, "
+              f"joined and returned at {t1 - t0:.1f} s, checked in "
+              f"{time.time() - t1:.1f} s")
+    t0 = time.perf_counter()
+    ranks = launch.run_ranks(2, dryrun_rank, (2,), backend="gloo",
+                             device="cuda")
+    for r, passes in enumerate(ranks):
+        for name, record in passes.items():
+            path = "dense" if name == "fit dense" else "blocks"
+            idle = [k for k in PATH_KERNELS[path]
+                    if record["launches"].get(k, 0) <= 0]
+            if idle:
+                fail(f"dryrun rank {r} {name}: did not launch {idle}")
+            if record["loss"] != ranks[0][name]["loss"]:
+                fail(f"dryrun {name}: rank {r}'s loss differs from rank 0's")
+    phase("sharded", f"dryrun_multichip(2)'s passes (dryrun.rank_passes) "
+          f"over gloo on the card: finite, kernel calls == plain, losses "
+          f"and launches {ranks[0]} on rank 0, the same losses on rank 1 "
+          f"({time.perf_counter() - t0:.1f} s)")
+    out.update({f"dryrun {name}": {f"rank {r}": passes[name]["launches"]
+                                   for r, passes in enumerate(ranks)}
+                for name in ranks[0]})
+    return out
+
+
+# --------------------------------------------------------------------------
 # Timing
 # --------------------------------------------------------------------------
 
@@ -2205,6 +2559,7 @@ def main():
     path_launches.append(repro_launches)
     model_launches = check_models(device)
     sample_launches = check_samples(device)
+    sharded_launches = check_sharded(scene, large_scene, card_line)
     for counts in path_launches:
         for name, n in counts.items():
             launches.setdefault(name, n)
@@ -2312,6 +2667,7 @@ def main():
     phase("timing", f"deferred launches per step: {deferred_launches}")
     phase("timing", f"model launches per step: {model_launches}; sample "
           f"fits' launches: {sample_launches}")
+    phase("timing", f"sharded launches per step: {sharded_launches}")
 
     # 6. Result
     missing = sorted(set(_cuda.KERNELS) - {k["name"] for k in kernels})
@@ -2321,7 +2677,7 @@ def main():
     print(card_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": 1}}))
+        "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":

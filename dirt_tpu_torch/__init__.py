@@ -13,7 +13,8 @@ device="cpu".  It never imports jax.
 Public entry points: rasterise, rasterise_batch, rasterise_batch_with_aux,
 rasterise_deferred, rasterise_batch_deferred, rasterise_grad_debug, plus
 the helper modules ``matrices``, ``projection`` and ``lighting``
-(``models`` holds the renderer pipelines, ``samples`` the sample programs).
+(``models`` holds the renderer pipelines, ``samples`` the sample programs,
+``parallel`` batch and face sharding over torch.distributed).
 """
 
 from . import lighting, matrices, projection

@@ -13,8 +13,8 @@
   raise instead of falling back.
 * Entry points given numpy inputs run on the card: without one they
   raise, unless the caller asks for the CPU with device="cpu" (the
-  rasteriser's, matrices', lighting's, projection's, textures' and a
-  renderer model's).
+  rasteriser's, matrices', lighting's, projection's, textures', a
+  renderer model's and the face-sharded rasteriser's).
 """
 
 import ast
@@ -51,7 +51,10 @@ def test_import_leaves_jax_out():
             "dirt_tpu_torch.models, dirt_tpu_torch.utils.textures, "
             "dirt_tpu_torch.utils.profiling, dirt_tpu_torch.samples.simple, "
             "dirt_tpu_torch.samples.deferred, "
-            "dirt_tpu_torch.samples.textured; "
+            "dirt_tpu_torch.samples.textured, dirt_tpu_torch.parallel, "
+            "dirt_tpu_torch.parallel.sharding, "
+            "dirt_tpu_torch.parallel.face_sharding, "
+            "dirt_tpu_torch.parallel.launch, dirt_tpu_torch.parallel.dryrun; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
             "if m.startswith('jax'))")
     subprocess.run([sys.executable, "-c", code], check=True, env=_env(),
@@ -311,3 +314,29 @@ def test_tensors_decide_the_device():
         input_device([t, torch.zeros(2, device="meta")])
     with pytest.raises(ValueError):
         input_device([t], "cuda")
+
+
+def _face_sharded_entry(device):
+    """The face-sharded rasteriser on numpy inputs, in a one-rank group."""
+    from dirt_tpu_torch.parallel import face_sharding
+    mesh = face_sharding.make_face_mesh(device_type="cpu")
+    bg, v, c, f = (a[None] for a in _numpy_scene())
+    return face_sharding.rasterise_batch_face_sharded(mesh, bg, v, c, f,
+                                                      device=device)
+
+
+def test_face_sharded_numpy_inputs_go_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without CUDA")
+    from dirt_tpu_torch.parallel import launch
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch.run_ranks(1, _face_sharded_entry, (None,), backend="gloo",
+                         device="cpu")
+
+
+def test_face_sharded_numpy_inputs_run_on_the_cpu_when_asked():
+    from dirt_tpu_torch.parallel import launch
+    out, = launch.run_ranks(1, _face_sharded_entry, ("cpu",),
+                            backend="gloo", device="cpu")
+    assert out.device.type == "cpu"
+    assert bool(torch.isfinite(out).all())
