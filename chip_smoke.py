@@ -111,6 +111,34 @@ failure:
         rank in its step (counters reset just before it, read just after);
         a rank that raises fails the run; each step's median ms and
         profiler device ms per rank, with the transport;
+     l. scale (check_scale): a. sweeps/_sweep_r2.py's six configurations
+        (16 x 128^2, 16 x 256^2 and 4 x 512^2 at 512 faces, 16 x 256^2 at
+        2,048 and 8,192, 4 x 512^2 at 65,536) and the 65,536-face mesh
+        zoomed in (ZOOM_RIGHT): the blocks step and the dense step, each
+        counted and recorded, blocks dropping nothing, dense's winner map
+        == blocks', gradients within 3e-6 of the plain gradient; where
+        dense's default per-tile cap drops hits (65,536 faces), its checks
+        run with DIRT_TPU_TORCH_TILE_FACE_CAP=0 (no cap), set and restored
+        around them, and the default's drops and changed image-0 pixels
+        are printed; image 0's winner maps == the f32 native oracle's,
+        pixels within 1e-4, and at 65,536 faces the f64 oracle's
+        adjudication counts (kernel != f64, f32 oracle != f64); each
+        step's ms, device ms, busy share, largest items and peak memory,
+        and from 8,192 faces each path kernel alone beside its bound;
+        b. camera crossing: tests/test_clipping.py's 12-vertex scene and
+        the bench cylinder with the camera inside it (view translation
+        -0.3): the blocks, dense, pallas and mxu steps counted and
+        recorded, gradients finite and within 3e-6 of plain, no face
+        wholly behind the camera drawn, every image's blocks, dense and
+        pallas winner maps == the native oracle's, and against the GL
+        clipping oracle (rasterise_clipped) only within one pixel of its
+        boundaries on under 2% of the pixels; c. the cylinder Jacobian of
+        tests/test_cylinder_jacobian.py at 48 x 36: background rows within
+        1e-4 of central differences, translation x/y within rtol 0.35, z
+        by sign, 30 steps of rotation descent under 0.4 x the initial
+        error.  The oracle's calls (one f32 and one f64 at each 65,536-face
+        row, minutes each) run in threads from just after the build and
+        are held last; the phase prints its seconds;
      Every kernel call a path makes (the deferred path's two-call form
      included) is also recorded and held against its plain version on the
      same inputs, bitwise or within 1e-5 as above; then lines give K1's
@@ -156,6 +184,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -198,6 +227,7 @@ PATH_KERNELS = {
                "grad_reduce", "dense_grad_reduce"),
 }
 MODEL_SIZE = (640, 480)       # the samples' image (width, height)
+ZOOM_RIGHT = 0.05    # the zoom scenes' projection half-width (bench: 0.25)
 MODEL_TOL = 1e-4     # card vs CPU: pixels, and gradients / max |grad|
 
 
@@ -218,10 +248,13 @@ def _cdiv(a, b):
 # Scenes (numpy from a seed, then tensors on the device)
 # --------------------------------------------------------------------------
 
-def bench_scene(batch, resolution, segments, device, right=0.25):
+def bench_scene(batch, resolution, segments, device, right=0.25,
+                distance=3.0):
     """The bench.py scene (bench.py:111-137), built with the port's
     matrices from numpy seed 0; `right` is the projection's half-width at
-    the near plane (0.05 zooms in: the "zoom" timing scene)."""
+    the near plane (ZOOM_RIGHT zooms in: the "zoom" timing scene), and
+    `distance` the view's translation along -z (0.3 puts the camera
+    inside the cylinder: faces cross the camera plane)."""
     from dirt_tpu_torch import matrices
     from dirt_tpu_torch.utils import meshes
     rng = np.random.RandomState(0)
@@ -229,7 +262,7 @@ def bench_scene(batch, resolution, segments, device, right=0.25):
     homogeneous = np.concatenate(
         [vertices, np.ones((vertices.shape[0], 1), np.float32)], axis=1)
     t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
-    view = matrices.compose(matrices.translation(t([0., 0., -3.0])),
+    view = matrices.compose(matrices.translation(t([0., 0., -distance])),
                             matrices.rodrigues(t([-0.4, 0., 0.])))
     projection = matrices.perspective_projection(
         near=0.1, far=20., right=right, aspect=1., device=device)
@@ -670,6 +703,7 @@ def kernel_inputs(scene):
                        channels=channels, finalize=finalize, prepass=prepass,
                        reduce_args=reduce_args, visits=gcounts,
                        sweep_args=sweep_args, sweep_visits=counts,
+                       list_faces=dcounts,
                        window_pixels=window_pixels, live_items=live_items,
                        live_bands=int((mcounts > 0).sum()), sweep_tiles={
                            "raster_sweep": (th, tw),
@@ -1315,12 +1349,13 @@ def recording():
             setattr(mod, wrapper, original)
 
 
-def check_recorded(tag, path, calls):
+def check_recorded(tag, path, calls, plain_s=None):
     """Holds each recorded kernel call against its plain version on the
     same arguments: K4, K1, K5b, K5, K7, K2 and K8 bitwise, K3, K6, K9
     and K10 within ROW_TOL;
     fails if a kernel of `path` has no recorded call.  Returns {kernel:
-    [shape of each call's first result]}."""
+    [shape of each call's first result]}; adds each plain version's
+    seconds to plain_s[kernel] where plain_s is given."""
     from dirt_tpu_torch.ops import _cuda, grad_blocks, grad_dense, grad_mxu
     checked = {}
     for name, args, kwargs, got in calls:
@@ -1344,8 +1379,12 @@ def check_recorded(tag, path, calls):
             MXU_LAUNCHES[(ncols, chunk, num_chunks)] = grad_mxu.mxu_shape(
                 chunk, num_chunks,
                 _cuda.shared_memory_optin(named["face_ids"].device))
+        t0 = time.perf_counter()
         want = _tensors(plain(*args, **kwargs))
         torch.cuda.synchronize()
+        if plain_s is not None:
+            plain_s[name] = (plain_s.get(name, 0.0) + time.perf_counter()
+                             - t0)
         for g, w in zip(got, want, strict=True):
             if name in BITWISE:
                 if not torch.equal(g, w):
@@ -2263,6 +2302,510 @@ def check_sharded(scene, large_scene, card_line):
 
 
 # --------------------------------------------------------------------------
+# Scale, camera crossing and the cylinder Jacobian (phase 4l)
+# --------------------------------------------------------------------------
+
+# sweeps/_sweep_r2.py:100-106's configurations as (tag, batch, resolution,
+# cylinder segments: 8 faces a segment, projection half-width), then the
+# 65,536-face mesh zoomed in, closer to a user's large mesh: image 0
+# covers 29,212 of its 262,144 pixels (2,015 at 0.25).
+SCALE_ROWS = (
+    ("16x128^2x512f", 16, 128, 64, 0.25),
+    ("16x256^2x512f", 16, 256, 64, 0.25),
+    ("4x512^2x512f", 4, 512, 64, 0.25),
+    ("16x256^2x2048f", 16, 256, 256, 0.25),
+    ("16x256^2x8192f", 16, 256, 1024, 0.25),
+    ("4x512^2x65536f", 4, 512, 8192, 0.25),
+    ("4x512^2x65536f zoom", 4, 512, 8192, ZOOM_RIGHT),
+)
+# From this many faces a row is adjudicated by the f64 oracle and timed
+# over LARGE_STEPS steps; from KERNEL_ROW_FACES each path kernel is timed
+# alone beside its bound.
+LARGE_MESH = 65536
+LARGE_STEPS = 10
+KERNEL_ROW_FACES = 8192
+SCALE_KERNELS = ("hit_plane", "raster_sweep", "grad_prepass", "grad_reduce",
+                 "dense_sweep", "dense_grad_reduce")
+# DIRT_TPU_TORCH_TILE_FACE_CAP of dense's checks where the default cap
+# (8,192 faces a tile) drops hits: <= 0 keeps every face a tile overlaps.
+UNCAPPED = 0
+CROSSING_DISTANCE = 0.3   # the camera inside the bench cylinder (bench: 3)
+CLIPPED_SHARE = 0.02      # rasterise_clipped may differ on < 2% of pixels
+JACOBIAN_SIZE = (48, 36)  # tests/test_cylinder_jacobian.py's W, H
+JACOBIAN_BG = (0.4, 0.2, 0.2)
+
+
+def _host(*tensors):
+    return [t.detach().cpu().numpy() for t in tensors]
+
+
+def clip_test_scene(device):
+    """tests/test_clipping.py's scene (numpy seed 42): face 0 crosses the
+    camera plane with one vertex behind it (w < 0), face 1 is an ordinary
+    visible triangle, face 2 lies wholly behind the camera and face 3
+    crosses with two vertices behind; one 48 x 64 image, weights from
+    seed 43."""
+    rng = np.random.RandomState(42)
+    v = np.array([
+        [-0.6, -0.5, 0.2, 1.0], [0.7, -0.4, 0.3, 1.2], [0.1, 0.9, -0.4, -0.8],
+        [-0.8, 0.1, 0.0, 1.0], [0.2, -0.8, 0.0, 1.0], [0.6, 0.6, 0.0, 1.0],
+        [-0.5, -0.5, 0.1, -1.0], [0.5, -0.5, 0.1, -1.2], [0.0, 0.7, 0.1, -0.9],
+        [0.9, -0.9, 0.5, 1.5], [-0.3, 0.2, -0.2, -0.6], [0.8, 0.8, -0.3, -1.1],
+    ], np.float32)
+    f = np.arange(12, dtype=np.int32).reshape(4, 3)
+    c = rng.uniform(size=(12, 3)).astype(np.float32)
+    bg = rng.uniform(size=(48, 64, 3)).astype(np.float32)
+    w = np.random.RandomState(43).uniform(size=bg.shape).astype(np.float32)
+    t = lambda a: torch.as_tensor(a[None], device=device)
+    return t(bg), t(v), t(c), t(f), t(w)
+
+
+def behind_faces(clip, faces):
+    """[B, F] bool: faces whose three vertices all have w <= 0 (GL clips
+    them away whole)."""
+    w = torch.gather(clip[..., 3], 1, faces.reshape(faces.shape[0], -1).long())
+    return (w.reshape(faces.shape) <= 0).all(dim=-1)
+
+
+def near_boundary(index):
+    """[H, W] bool: pixels within one (Chebyshev) of a boundary of the
+    winner map `index` [H, W] (tests/test_clipping.py:72-94)."""
+    pad = np.pad(index, 1, mode="edge")
+    near = np.zeros(index.shape, bool)
+    for dr in (-1, 0, 1):
+        for dc in (-1, 0, 1):
+            near |= pad[1 + dr:1 + dr + index.shape[0],
+                        1 + dc:1 + dc + index.shape[1]] != index
+    return near
+
+
+def clipped_disagreement(index, clipped):
+    """(pixels where `index` differs from the clipping oracle's map
+    `clipped`, those of them not within one pixel of its boundaries)."""
+    disagree = index != clipped
+    return int(disagree.sum()), int((disagree & ~near_boundary(clipped)).sum())
+
+
+def start_oracles(pool, rows, crossings):
+    """Submits phase 4l's native oracle calls to `pool` (ctypes releases
+    the GIL, so they run beside the card's steps), the slowest first: per
+    scale row image 0's rasterise, and at LARGE_MESH faces its
+    visibility_f64; per crossing scene each image's rasterise and
+    rasterise_clipped.  Returns {(tag, kind[, image]): future}."""
+    from dirt_tpu_torch.utils import oracle
+    jobs = {}
+    for tag, scene in sorted(rows.items(), key=lambda kv: -kv[1][3].shape[1]):
+        background, clip, colors, faces = _host(
+            *(t[0] for t in scene[:4]))
+        jobs[(tag, "f32")] = pool.submit(oracle.rasterise, background, clip,
+                                         colors, faces)
+        if faces.shape[0] >= LARGE_MESH:
+            jobs[(tag, "f64")] = pool.submit(
+                oracle.visibility_f64, clip, faces, *background.shape[:2])
+    for tag, scene in crossings.items():
+        for b in range(scene[0].shape[0]):
+            image = _host(*(t[b] for t in scene[:4]))
+            jobs[(tag, "f32", b)] = pool.submit(oracle.rasterise, *image)
+            jobs[(tag, "clipped", b)] = pool.submit(
+                oracle.rasterise_clipped, *image)
+    return jobs
+
+
+def scale_timing(tag, run, reps, card_line):
+    """Times one path's step on a scale row: CUDA-event ms (median of
+    `reps`), the profiler's device ms, busy share and largest items, and
+    the step's peak device memory."""
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(run, reps)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    device_ms, n_kernels, top, _ = device_profile(run, PROFILE_STEPS)
+    device = ("not measured" if device_ms is None else
+              f"{device_ms:.4f} ms/step, busy share {device_ms / ms:.3f}")
+    phase("scale", f"{tag}: step {ms:.4f} ms (CUDA events, median of "
+          f"{reps}), device {device} (torch.profiler, {PROFILE_STEPS} "
+          f"steps), {n_kernels:.0f} device kernels/step, largest {top}, "
+          f"peak memory {peak:.3f} GiB on {card_line}")
+
+
+def scale_kernels(tag, scene, card_line):
+    """Each path kernel of a large scale row timed alone (profiler device
+    ms) beside its bound, with the busiest run or list it walks."""
+    with _environ("DIRT_TPU_TORCH_TILE_FACE_CAP", UNCAPPED):
+        calls, info = kernel_inputs(scene)
+    walks = {"raster_sweep": f"runs of up to "
+             f"{int(info['sweep_visits'].max())} visits",
+             "grad_reduce": f"runs of up to {int(info['visits'].max())} "
+             f"tiles",
+             "dense_sweep": f"lists of up to "
+             f"{int(info['list_faces'].max())} faces",
+             "dense_grad_reduce": f"{info['window_pixels'].numel()} live "
+             f"slots"}
+    parts = []
+    for name in SCALE_KERNELS:
+        bound_ms, bound_by = bound(*info["work"][name])
+        parts.append(f"{name} {device_time(calls[name][0], name):.4f} ms "
+                     f"device, bound {bound_ms:.4f} ({bound_by})"
+                     + (f", {walks[name]}" if name in walks else ""))
+    phase("scale", f"{tag} kernels alone (dense uncapped): "
+          + "; ".join(parts) + f" on {card_line}")
+
+
+def checked_step(tag, scene, backend, plain_s=None):
+    """One counted, recorded step of `backend` ("mxu": the blocks forward
+    with the mxu gradient) on `scene`: every path kernel launched, each
+    kernel call == its plain version (plain_s: check_recorded's), the
+    forward's pixels == rasterise_batch_with_aux's, nothing dropped, the
+    gradients finite and within GRAD_TOL of the plain gradient.  Returns
+    (pixels, aux, launches)."""
+    import dirt_tpu_torch
+    background, clip, colors, faces, _ = scene
+    run = ((lambda: mxu_step(scene)) if backend == "mxu"
+           else (lambda: step(scene, backend)))
+    with recording() as calls:
+        (pixels, grads), launches = counted(backend, run)
+    check_recorded(f"{tag} {backend}", backend, calls, plain_s)
+    del calls
+    px, aux = dirt_tpu_torch.rasterise_batch_with_aux(
+        background, clip, colors, faces,
+        backend="blocks" if backend == "mxu" else backend)
+    if not torch.equal(px, pixels):
+        fail(f"{tag} {backend}: rasterise_batch_with_aux's pixels differ "
+             f"from the step's")
+    if int(aux.dropped.max()) != 0:
+        fail(f"{tag} {backend}: dropped {aux.dropped.tolist()}")
+    _check_plain_gradient(f"{tag} {backend}", scene, pixels, aux, grads)
+    return pixels, aux, launches
+
+
+def check_scale_row(tag, scene, card_line):
+    """Drives one scale row on the card (phase 4l a): the blocks step and
+    the dense step (checked_step each); dense's winner map == blocks' and
+    its pixels within 1e-4; where dense's default cap drops hits, its
+    checks run uncapped (UNCAPPED) and its default's drops and changed
+    image-0 pixels are printed.  Returns image 0's blocks and dense
+    (winner map, pixels) on the host, for the oracle."""
+    import dirt_tpu_torch
+    background, clip, colors, faces, _ = scene
+    plain_s = {"blocks": {}, "dense": {}}
+    pixels, aux, launches = checked_step(tag, scene, "blocks",
+                                         plain_s["blocks"])
+    _, default_aux = dirt_tpu_torch.rasterise_batch_with_aux(
+        background, clip, colors, faces, backend="dense")
+    default_dropped = default_aux.dropped.tolist()
+    changed = int((default_aux.face_index[0] != aux.face_index[0]).sum())
+    del default_aux
+    capped = max(default_dropped) > 0
+    cap = (_environ("DIRT_TPU_TORCH_TILE_FACE_CAP", UNCAPPED) if capped
+           else contextlib.nullcontext())
+    with cap:
+        dense_pixels, daux, dense_launches = checked_step(
+            tag, scene, "dense", plain_s["dense"])
+        if not torch.equal(daux.face_index, aux.face_index):
+            fail(f"{tag}: dense's winner map differs from blocks' at "
+                 f"{int((daux.face_index != aux.face_index).sum())} pixels")
+        err = _max_abs(dense_pixels, pixels)
+        if not err <= 1e-4:
+            fail(f"{tag}: dense's pixels differ from blocks' by {err}")
+        host = dict(blocks=_host(aux.face_index[0], pixels[0]),
+                    dense=_host(daux.face_index[0], dense_pixels[0]))
+        del aux, daux, pixels, dense_pixels
+        phase("scale", f"{tag}: launches blocks {launches}, dense "
+              f"{dense_launches}; dropped at the defaults: blocks 0, dense "
+              f"{default_dropped} (changing {changed} image-0 pixels); "
+              f"each kernel call == (K3/K9 within {ROW_TOL}) its plain "
+              f"version, the plain versions' seconds " + str(
+                  {path: {k: round(v, 3) for k, v in times.items()}
+                   for path, times in plain_s.items()})
+              + "; dense"
+              + (f" with DIRT_TPU_TORCH_TILE_FACE_CAP={UNCAPPED} (no cap)"
+                 if capped else " at the defaults")
+              + ": dropped 0, winner map == blocks', pixels within 1e-4; "
+              "gradients vs plain within 3e-6")
+        reps = LARGE_STEPS if faces.shape[1] >= LARGE_MESH else STEPS
+        scale_timing(f"{tag} blocks", lambda: step(scene, "blocks"), reps,
+                     card_line)
+        scale_timing(f"{tag} dense" + (" uncapped" if capped else ""),
+                     lambda: step(scene, "dense"), reps, card_line)
+    if faces.shape[1] >= KERNEL_ROW_FACES:
+        scale_kernels(tag, scene, card_line)
+    return host
+
+
+def check_scale_oracle(tag, host, jobs):
+    """Image 0's blocks and dense winner maps == the f32 native oracle's,
+    pixels within 1e-4; at LARGE_MESH faces, also the f64 adjudication
+    counts of sweeps/_sweep_r2.py:44-53.  Returns the line's text."""
+    want_px, want_index = jobs[(tag, "f32")].result()
+    for backend, (index, pixels) in host.items():
+        bad = int((index != want_index).sum())
+        if bad:
+            fail(f"{tag}: {backend}'s image-0 winner map differs from the "
+                 f"f32 native oracle's at {bad} of "
+                 f"{int((want_index >= 0).sum())} covered pixels")
+        err = float(np.abs(pixels - want_px).max())
+        if not err <= 1e-4:
+            fail(f"{tag}: {backend}'s image-0 pixels differ from the "
+                 f"oracle's by {err}")
+    text = (f"{tag}: image 0's winner map == the f32 oracle's ("
+            f"{int((want_index >= 0).sum())} covered pixels), pixels within "
+            f"1e-4, blocks and dense")
+    if (tag, "f64") in jobs:
+        index64 = jobs[(tag, "f64")].result()
+        text += (f"; f64 adjudication: kernel != f64 at "
+                 f"{int((host['blocks'][0] != index64).sum())}, f32 oracle "
+                 f"!= f64 at {int((want_index != index64).sum())} pixels")
+    return text
+
+
+def check_crossing(tag, scene):
+    """Drives a camera-crossing scene on the card (phase 4l b): the blocks,
+    dense, pallas and mxu steps (checked_step each), no face wholly
+    behind the camera drawn.  Returns {backend: (winner maps [B, H, W],
+    pixels)} on the host for blocks, dense and pallas."""
+    _, clip, _, faces, _ = scene
+    behind = behind_faces(clip, faces)
+    maps, launches = {}, {}
+    for backend in ("blocks", "dense", "pallas", "mxu"):
+        pixels, aux, launches[backend] = checked_step(tag, scene, backend)
+        drawn = torch.gather(behind, 1,
+                             aux.face_index.clamp(min=0).flatten(1).long())
+        if bool((drawn & (aux.face_index.flatten(1) >= 0)).any()):
+            fail(f"{tag} {backend}: a face wholly behind the camera was "
+                 f"drawn")
+        if backend != "mxu":
+            maps[backend] = _host(aux.face_index, pixels)
+    phase("crossing", f"{tag}: {int(behind.sum())} faces wholly behind the "
+          f"camera, none drawn; launches {launches}; each kernel call == "
+          f"(K3/K9/K10 within {ROW_TOL}) its plain version; dropped 0; "
+          f"gradients (blocks, dense, pallas, mxu) finite and within 3e-6 "
+          f"of plain")
+    return maps
+
+
+def check_crossing_oracle(tag, maps, jobs):
+    """Every image's blocks, dense and pallas winner maps == the f32
+    oracle's, pixels within 1e-4, and against rasterise_clipped only
+    within one pixel of its boundaries, on under CLIPPED_SHARE of the
+    pixels.  Returns the line's text."""
+    worst = 0
+    for b in range(maps["blocks"][0].shape[0]):
+        want_px, want_index = jobs[(tag, "f32", b)].result()
+        _, clipped = jobs[(tag, "clipped", b)].result()
+        for backend, (index, pixels) in maps.items():
+            if not np.array_equal(index[b], want_index):
+                fail(f"{tag} {backend}: image {b}'s winner map differs from "
+                     f"the native oracle's at "
+                     f"{int((index[b] != want_index).sum())} pixels")
+            err = float(np.abs(pixels[b] - want_px).max())
+            if not err <= 1e-4:
+                fail(f"{tag} {backend}: image {b}'s pixels differ from the "
+                     f"oracle's by {err}")
+            disagree, stray = clipped_disagreement(index[b], clipped)
+            if stray:
+                fail(f"{tag} {backend}: image {b} differs from the clipping "
+                     f"oracle at {stray} pixels away from its boundaries")
+            share = disagree / index[b].size
+            if not share < CLIPPED_SHARE:
+                fail(f"{tag} {backend}: image {b} differs from the clipping "
+                     f"oracle on {share:.4f} of its pixels")
+            worst = max(worst, disagree)
+    return (f"{tag}: blocks, dense and pallas winner maps == the native "
+            f"oracle's on every image, pixels within 1e-4; vs the clipping "
+            f"oracle only within one pixel of its boundaries, at most "
+            f"{worst} of an image's {index[0].size} pixels")
+
+
+def jacobian_scene():
+    """tests/test_cylinder_jacobian.py's scene on the host: the bevelled
+    cylinder (10 segments) split by face, Lambert-shaded under one light:
+    (vertices [V, 4], faces [F, 3], colours [V, 3]), CPU tensors."""
+    from dirt_tpu_torch import lighting
+    from dirt_tpu_torch.utils import meshes
+    vertices, faces = meshes.make_cylinder(0.2, 0.75, 0.1, 0., 10)
+    vertices = np.concatenate(
+        [vertices, np.ones([len(vertices), 1], np.float32)], axis=1)
+    vertices, faces = lighting.split_vertices_by_face(vertices, faces,
+                                                      device="cpu")
+    normals = lighting.vertex_normals_pre_split(vertices[..., :3], faces)
+    colors = lighting.diffuse_directional(
+        normals, torch.ones_like(normals) * torch.tensor([0.7, 0.3, 0.6]),
+        light_direction=torch.tensor([0.6, -0.5, -0.6]),
+        light_color=torch.tensor([1., 1., 1.])) * 0.8 + 0.2
+    return vertices, faces, colors
+
+
+def jacobian_render(scene, translation, rotation_xy, bgcolor, device):
+    """The test's image at JACOBIAN_SIZE, [H, W, 3] on `device`: the mesh
+    rotated by `rotation_xy` about z and halved, translated, projected, on
+    a background of `bgcolor`.  The scene math runs on the host, as in the
+    CPU test, whatever `device` rasterises: the x translation row sits at
+    0.34994 of its rtol of 0.35 in both packages, and one ulp of the
+    projected vertices moves it past that (a CPU measurement, PERF.md)."""
+    import dirt_tpu_torch
+    from dirt_tpu_torch import matrices
+    vertices, faces, colors = scene
+    width, height = JACOBIAN_SIZE
+    c, s = torch.cos(rotation_xy), torch.sin(rotation_xy)
+    zero = torch.zeros_like(c)
+    view1 = torch.diag(torch.tensor([0.5, 0.5, 0.5, 1.])) @ torch.stack([
+        torch.stack([c, -s, zero, zero]), torch.stack([s, c, zero, zero]),
+        torch.tensor([0., 0., 1., 0.]), torch.tensor([0., 0., 0., 1.])])
+    projection = matrices.perspective_projection(
+        0.1, 20., 0.2, float(height) / width, device="cpu")
+    projected = (vertices @ view1 @ matrices.translation(translation)
+                 @ projection)
+    background = torch.ones(height, width, 3) * bgcolor
+    return dirt_tpu_torch.rasterise(*(x.to(device) for x in (
+        background, projected, colors, faces)))
+
+
+def jacobian_background_rows(scene, device):
+    """Four Jacobian rows of the background colour at pixels and channels
+    drawn from numpy seed 1: [(analytic, central difference)]."""
+    width, height = JACOBIAN_SIZE
+    translation, rotation = torch.tensor([0., 0., -0.25]), torch.tensor(0.)
+    render = lambda bg: jacobian_render(scene, translation, rotation, bg,
+                                        device)
+    bg0 = torch.tensor(JACOBIAN_BG)
+    bg = bg0.clone().requires_grad_(True)
+    pixels = render(bg)
+    rng = np.random.RandomState(1)
+    rows = []
+    for _ in range(4):
+        y, x, ch = rng.randint(height), rng.randint(width), rng.randint(3)
+        g, = torch.autograd.grad(pixels[y, x, ch], bg, retain_graph=True)
+        eps = 1e-2
+        d = torch.zeros(3)
+        d[ch] = eps
+        with torch.no_grad():
+            fd = (render(bg0 + d) - render(bg0 - d))[y, x, ch] / (2 * eps)
+        rows.append((float(g[ch]), float(fd)))
+    return rows
+
+
+def jacobian_translation(scene, device):
+    """The translation gradient of a smooth functional (the pixels times
+    a ramp in x plus a ramp in y) and its central differences: one pixel
+    along x and y, 0.02 along z.  Returns (gradient [3], differences [3])
+    as numpy."""
+    width, height = JACOBIAN_SIZE
+    ramp = (torch.linspace(0., 1., width, device=device)[None, :, None]
+            + torch.linspace(0., 2., height, device=device)[:, None, None])
+
+    def loss(translation):
+        return (jacobian_render(scene, translation, torch.tensor(0.),
+                                torch.tensor(JACOBIAN_BG), device)
+                * ramp).sum()
+
+    t0 = torch.tensor([0., 0., -0.25])
+    leaf = t0.clone().requires_grad_(True)
+    grad, = torch.autograd.grad(loss(leaf), leaf)
+    fd = []
+    with torch.no_grad():
+        for axis, step in ((0, 2. / width), (1, 2. / height), (2, 0.04)):
+            e = torch.zeros(3)
+            e[axis] = step / 2
+            fd.append(float(loss(t0 + e) - loss(t0 - e)) / step)
+    return grad.numpy(), np.array(fd)
+
+
+def rotation_descent(scene, device, steps=30, rate=8.0):
+    """Gradient descent on the rotation angle from 0.2 towards a target
+    rendered at 0.45 (mean squared pixel error); returns (initial error,
+    final error) in radians."""
+    target_angle = 0.45
+    render = lambda a: jacobian_render(scene, torch.tensor([0., 0., -0.25]),
+                                       a, torch.tensor(JACOBIAN_BG), device)
+    with torch.no_grad():
+        target = render(torch.tensor(target_angle))
+    angle = torch.tensor(0.2)
+    initial = abs(float(angle) - target_angle)
+    for _ in range(steps):
+        leaf = angle.clone().requires_grad_(True)
+        grad, = torch.autograd.grad(((render(leaf) - target) ** 2).mean(),
+                                    leaf)
+        angle = angle - rate * grad
+    return initial, abs(float(angle) - target_angle)
+
+
+def check_jacobian(device):
+    """tests/test_cylinder_jacobian.py's checks, rasterised on `device`
+    (phase 4l c): background rows within 1e-4 of central differences,
+    the x and y translation rows within rtol 0.35, z by sign, and 30
+    steps of rotation descent ending under 0.4 x the initial error."""
+    scene = jacobian_scene()
+    rows = jacobian_background_rows(scene, device)
+    for g, fd in rows:
+        if not abs(g - fd) <= 1e-4:
+            fail(f"jacobian: a background row {g} differs from its central "
+                 f"difference {fd}")
+    grad, fd = jacobian_translation(scene, device)
+    for axis in (0, 1):
+        if not (abs(fd[axis]) > 1e-2
+                and abs(grad[axis] - fd[axis]) <= 0.35 * abs(fd[axis])):
+            fail(f"jacobian: translation row {axis}: {grad[axis]} vs "
+                 f"central difference {fd[axis]}")
+    if not (np.sign(grad[2]) == np.sign(fd[2]) and abs(grad[2]) > 1e-3):
+        fail(f"jacobian: translation z {grad[2]} vs {fd[2]} by sign")
+    initial, final = rotation_descent(scene, device)
+    if not final < 0.4 * initial:
+        fail(f"jacobian: rotation descent ended {final} from the target "
+             f"(from {initial})")
+    phase("jacobian", f"{JACOBIAN_SIZE[0]}x{JACOBIAN_SIZE[1]} cylinder: "
+          f"background rows (analytic, difference) "
+          f"{[(round(g, 6), round(d, 6)) for g, d in rows]} within 1e-4; "
+          f"translation {grad.tolist()} vs differences {fd.tolist()} (x, y "
+          f"within rtol 0.35: {abs(grad[0] - fd[0]) / abs(fd[0]):.5f}, "
+          f"{abs(grad[1] - fd[1]) / abs(fd[1]):.5f}; z by sign); rotation "
+          f"descent {initial:.4f} -> {final:.4f} rad in 30 steps")
+
+
+def scale_scenes(device, rows=SCALE_ROWS, crossing_size=(16, 256)):
+    """Phase 4l's scenes on `device`: ({tag: scale row}, {tag: crossing
+    scene}), the scale rows bench_scene's, the crossing scenes
+    tests/test_clipping.py's and the bench cylinder at `crossing_size`
+    (batch, resolution) with the camera inside it."""
+    scenes = {tag: bench_scene(batch, res, segments, device, right=right)
+              for tag, batch, res, segments, right in rows}
+    batch, res = crossing_size
+    crossings = {
+        "test_clipping 1x48x64": clip_test_scene(device),
+        f"cylinder inside {batch}x{res}^2x512f": bench_scene(
+            batch, res, 64, device, distance=CROSSING_DISTANCE)}
+    return scenes, crossings
+
+
+def check_scale(scenes, crossings, jobs, device, card_line):
+    """Phase 4l: the scale rows, the camera-crossing scenes and the
+    cylinder Jacobian on the card, then the native oracle's results
+    (`jobs`, start_oracles' futures, running since they were started)."""
+    t0 = time.perf_counter()
+    hosts, seconds = {}, {}
+    for tag in list(scenes):
+        t1 = time.perf_counter()
+        hosts[tag] = check_scale_row(tag, scenes.pop(tag), card_line)
+        torch.cuda.empty_cache()
+        seconds[tag] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    maps = {tag: check_crossing(tag, scene)
+            for tag, scene in crossings.items()}
+    seconds["crossing"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    check_jacobian(device)
+    seconds["jacobian"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    lines = [check_scale_oracle(tag, host, jobs)
+             for tag, host in hosts.items()]
+    lines += [check_crossing_oracle(tag, tag_maps, jobs)
+              for tag, tag_maps in maps.items()]
+    seconds["waiting for the oracle"] = time.perf_counter() - t1
+    for line in lines:
+        phase("oracle", line)
+    phase("scale", f"phase 4l: {time.perf_counter() - t0:.1f} s; seconds "
+          + str({k: round(v, 1) for k, v in seconds.items()}))
+
+
+# --------------------------------------------------------------------------
 # Timing
 # --------------------------------------------------------------------------
 
@@ -2472,7 +3015,7 @@ def sweeps_of(tree):
     phase("timing", f"the sweeps and K11 of {dirt_tpu_torch.__file__}")
     time_sweeps(sweep_scenes(
         bench_scene(16, 256, 64, device),
-        bench_scene(16, 256, 64, device, right=0.05),
+        bench_scene(16, 256, 64, device, right=ZOOM_RIGHT),
         bench_scene(1, 256, 1024, device),
         bench_scene(16, 256, 192, device)), card_line)
     time_accum(device, card_line)
@@ -2517,6 +3060,12 @@ def main():
     phase("build", f"{len(_cuda.SOURCES)} sources built and loaded in "
           f"{time.perf_counter() - t0:.1f} s ({_cuda.library_path().name})")
 
+    # Phase 4l's native oracle calls (~3 min at 65,536 faces on the
+    # card's host) run in threads from here on.
+    scale = scale_scenes(device)
+    oracle_pool = ThreadPoolExecutor(max_workers=os.cpu_count() or 4)
+    oracle_jobs = start_oracles(oracle_pool, *scale)
+
     # 3. Kernels vs plain
     scene = bench_scene(16, 256, 64, device)
     errors, calls, info = compare_kernels("bench 16x256^2x512f", scene)
@@ -2530,7 +3079,7 @@ def main():
     large_scene = bench_scene(1, 256, 1024, device)
     compare_kernels("1x256^2x8192f", large_scene)
     check_list_walk("1x256^2x8192f", large_scene)
-    zoom_scene = bench_scene(16, 256, 64, device, right=0.05)
+    zoom_scene = bench_scene(16, 256, 64, device, right=ZOOM_RIGHT)
     scene_1536 = bench_scene(16, 256, 192, device)
     check_resident_walk({"bench 16x256^2x512f": scene,
                          "zoom 16x256^2x512f": zoom_scene,
@@ -2560,6 +3109,8 @@ def main():
     model_launches = check_models(device)
     sample_launches = check_samples(device)
     sharded_launches = check_sharded(scene, large_scene, card_line)
+    check_scale(*scale, oracle_jobs, device, card_line)
+    oracle_pool.shutdown()
     for counts in path_launches:
         for name, n in counts.items():
             launches.setdefault(name, n)

@@ -206,8 +206,15 @@ def grad_prepass(pixels, grad_pixels, aux):
 
 
 def _segment_sum(rows, segments, num_segments):
-    out = torch.zeros(num_segments, rows.shape[-1], device=rows.device)
-    return out.index_add_(0, segments.reshape(-1).long(), rows)
+    """segment_sum of float32 rows, accumulated in float64: a vertex can
+    gather tens of thousands of pixels' rows (a face filling the frame),
+    and their float32 sum drifts by up to 3.6e-6 of the gradient's max
+    (the bench cylinder with the camera inside it, 16 x 256^2), more than
+    the kernels' tile-by-tile sums (1.9e-7).  Returns float32."""
+    out = torch.zeros(num_segments, rows.shape[-1], dtype=torch.float64,
+                      device=rows.device)
+    return out.index_add_(0, segments.reshape(-1).long(),
+                          rows.double()).float()
 
 
 def rasterise_grad_xla(vertices, pixels, grad_pixels, aux, parts="all",
@@ -274,6 +281,23 @@ def rasterise_grad_xla(vertices, pixels, grad_pixels, aux, parts="all",
         batch * num_vertices).reshape(batch, num_vertices, 4)
     return RasteriseGrads(grad_background, grad_vertices, grad_vertex_colors,
                           debug_image(dilated, grad_pixels))
+
+
+def rasterise_grad_single(vertices, faces, pixels, grad_pixels, aux,
+                          parts="all", color_cotangent=None):
+    """The plain scatter gradient of one image: rasterise_grad_batch's
+    "xla" implementation on vertices [V, 4], faces [F, 3], pixels and
+    grad_pixels [H, W, C], the RasterAux of one image and an optional
+    color_cotangent [H, W, C'], with its `parts` and its ValueErrors.
+    Returns RasteriseGrads of one image."""
+    aux = type(aux)(*(None if field is None else field[None]
+                      for field in aux))
+    grads = rasterise_grad_batch(
+        vertices[None], faces[None], pixels[None], grad_pixels[None], aux,
+        implementation="xla", parts=parts,
+        color_cotangent=(None if color_cotangent is None
+                         else color_cotangent[None]))
+    return RasteriseGrads(*(g[0] for g in grads))
 
 
 def default_implementation(device):

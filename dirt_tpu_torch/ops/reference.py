@@ -124,3 +124,12 @@ def rasterise_batch(background, vertices, vertex_colors, faces):
     # Exact by construction: every face is swept against every pixel.
     return pixels, aux._replace(dropped=torch.zeros(
         background.shape[0], dtype=torch.int32, device=background.device))
+
+
+def rasterise_single(background, vertices, vertex_colors, faces):
+    """rasterise_batch for one image: background [H, W, C], vertices
+    [V, 4], vertex_colors [V, C], faces [F, 3].  Returns (pixels
+    [H, W, C], RasterAux of one image, dropped 0)."""
+    pixels, aux = rasterise_batch(background[None], vertices[None],
+                                  vertex_colors[None], faces[None])
+    return pixels[0], RasterAux(*(field[0] for field in aux))

@@ -42,12 +42,43 @@ def _load():
     f32p = ctypes.POINTER(ctypes.c_float)
     i32p = ctypes.POINTER(ctypes.c_int32)
     i32 = ctypes.c_int32
-    fn = lib.dirt_oracle_rasterise
-    fn.restype = None
-    fn.argtypes = [f32p, f32p, f32p, i32p, i32, i32, i32, i32, i32,
-                   f32p, i32p]
+    for name in ("dirt_oracle_rasterise", "dirt_oracle_rasterise_clipped"):
+        fn = getattr(lib, name)
+        fn.restype = None
+        # background, vertices, colors, faces, V, F, H, W, C, out pixels,
+        # out face index
+        fn.argtypes = [f32p, f32p, f32p, i32p, i32, i32, i32, i32, i32,
+                       f32p, i32p]
+    vis64 = lib.dirt_oracle_visibility_f64
+    vis64.restype = None
+    # vertices, faces, V, F, H, W, out face index
+    vis64.argtypes = [f32p, i32p, i32, i32, i32, i32, i32p]
     _lib = lib
     return lib
+
+
+def _fptr(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+
+
+def _iptr(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+
+
+def _rasterise_with(fn, background, vertices, vertex_colors, faces):
+    """Calls one of the oracle's two rasterisers (they share a
+    signature) on one image's arrays."""
+    background = np.ascontiguousarray(background, np.float32)
+    vertices = np.ascontiguousarray(vertices, np.float32)
+    vertex_colors = np.ascontiguousarray(vertex_colors, np.float32)
+    faces = np.ascontiguousarray(faces, np.int32)
+    height, width, channels = background.shape
+    pixels = np.empty_like(background)
+    face_index = np.empty((height, width), np.int32)
+    fn(_fptr(background), _fptr(vertices), _fptr(vertex_colors),
+       _iptr(faces), vertices.shape[0], faces.shape[0], height, width,
+       channels, _fptr(pixels), _iptr(face_index))
+    return pixels, face_index
 
 
 def rasterise(background, vertices, vertex_colors, faces):
@@ -57,19 +88,44 @@ def rasterise(background, vertices, vertex_colors, faces):
     background [H, W, C], vertices [V, 4], vertex_colors [V, C], faces
     [F, 3].  Returns (pixels [H, W, C] float32, face_index [H, W] int32).
     """
-    lib = _load()
-    background = np.ascontiguousarray(background, np.float32)
-    vertices = np.ascontiguousarray(vertices, np.float32)
-    vertex_colors = np.ascontiguousarray(vertex_colors, np.float32)
-    faces = np.ascontiguousarray(faces, np.int32)
-    height, width, channels = background.shape
-    pixels = np.empty_like(background)
-    face_index = np.empty((height, width), np.int32)
+    return _rasterise_with(_load().dirt_oracle_rasterise, background,
+                           vertices, vertex_colors, faces)
 
-    fptr = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
-    iptr = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
-    lib.dirt_oracle_rasterise(
-        fptr(background), fptr(vertices), fptr(vertex_colors), iptr(faces),
-        vertices.shape[0], faces.shape[0], height, width, channels,
-        fptr(pixels), iptr(face_index))
-    return pixels, face_index
+
+def visibility_f64(vertices, faces, height, width):
+    """Winner map with all visibility arithmetic in double precision.
+
+    The adjudicator of near-tie winner disagreements between f32
+    implementations (sub-pixel faces, where edge-function cancellation
+    makes the pick sensitive to rounding): f32 inputs promote exactly to
+    f64, where 24-bit products are exact, so this map follows the true
+    geometry.  Not a bit-parity target for f32 backends.
+
+    Returns face_index [H, W] int32 (-1 background).
+    """
+    lib = _load()
+    vertices = np.ascontiguousarray(vertices, np.float32)
+    faces = np.ascontiguousarray(faces, np.int32)
+    face_index = np.empty((height, width), np.int32)
+    lib.dirt_oracle_visibility_f64(_fptr(vertices), _iptr(faces),
+                                   vertices.shape[0], faces.shape[0],
+                                   height, width, _iptr(face_index))
+    return face_index
+
+
+def rasterise_clipped(background, vertices, vertex_colors, faces):
+    """Rasterises one image with the GL polygon-clipping oracle.
+
+    The independent ground truth for w <= 0: Sutherland-Hodgman clipping
+    against {w >= eps, -w <= z <= w}, then projected 2-D rasterisation, as
+    GL hardware does.  Coverage may differ from the per-fragment backends
+    only in a one-pixel band at region boundaries.  Up to 8 channels.
+
+    Returns (pixels [H, W, C] float32, face_index [H, W] int32).
+    """
+    channels = np.shape(background)[-1]
+    if channels > 8:
+        raise ValueError(f"the clipped oracle supports up to 8 channels, "
+                         f"not {channels}")
+    return _rasterise_with(_load().dirt_oracle_rasterise_clipped, background,
+                           vertices, vertex_colors, faces)

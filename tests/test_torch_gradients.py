@@ -1,6 +1,10 @@
 """The port's gradient semantics against dirt_tpu's on the same scenes.
 
-Ports checks of tests/test_gradients.py and tests/test_dilation.py: each
+Ports tests/test_gradients.py's checks (the two finite-difference checks,
+vertex colour and translation, and the pallas backend's gradient among
+them) and four of tests/test_dilation.py's (the debug image of :145
+included: tests/test_torch_deferred.py holds the debug image equal to
+dirt_tpu's on a random scene, not the occluder scene's marks): each
 runs the same numpy scene through dirt_tpu (jitted, on the CPU) and
 dirt_tpu_torch (device="cpu": the reference forward and the plain scatter
 gradient), holds the port against dirt_tpu, then checks the property
@@ -234,3 +238,122 @@ def test_channel_grouping_matches_manual_composition():
     np.testing.assert_array_equal(gb, want[0])
     _close(gv, want[1])
     _close(gc, want[2])
+
+
+def _render_translated(t, vertices, faces, colors, channels=3):
+    """tests/test_gradients.py's render of `vertices` shifted by t [2]
+    (in NDC: x and y move by t * w), on a zero background."""
+    shifted = vertices + torch.cat(
+        [t * vertices[..., 3:], torch.zeros(vertices.shape[0], 2)], dim=-1)
+    return dirt_tpu_torch.rasterise(torch.zeros(H, W, channels), shifted,
+                                    colors, faces)
+
+
+def _render_translated_jax(t, vertices, faces, colors, channels=3):
+    shifted = vertices + jnp.concatenate(
+        [t * vertices[..., 3:], jnp.zeros((vertices.shape[0], 2))], axis=-1)
+    return dirt_tpu.rasterise(jnp.zeros((H, W, channels)), shifted, colors,
+                              faces)
+
+
+def test_vertex_color_gradient_matches_finite_difference():
+    rng = np.random.RandomState(0)
+    vertices = torch.tensor(_square(-0.1, 0.2, 0.5, 0.1, 1.3))
+    colors0 = rng.uniform(size=(4, 3)).astype(np.float32)
+    weights = rng.randn(H, W, 3).astype(np.float32)
+
+    def loss(colors):
+        return torch.sum(dirt_tpu_torch.rasterise(
+            torch.zeros(H, W, 3), vertices, colors, torch.tensor(QUAD))
+            * torch.tensor(weights))
+
+    got, = _port_grads(loss, colors0)
+    want = np.asarray(jax.jit(jax.grad(lambda c: jnp.sum(dirt_tpu.rasterise(
+        jnp.zeros((H, W, 3)), vertices.numpy(), c, QUAD) * weights)))(
+            colors0))
+    _close(got, want)
+    eps = 1e-2
+    for v, c in [(0, 0), (1, 2), (3, 1)]:
+        delta = np.zeros((4, 3), np.float32)
+        delta[v, c] = eps
+        with torch.no_grad():
+            fd = (loss(torch.tensor(colors0 + delta))
+                  - loss(torch.tensor(colors0 - delta))) / (2 * eps)
+        np.testing.assert_allclose(got[v, c], float(fd), rtol=2e-3,
+                                   atol=1e-3)
+
+
+def test_translation_gradient_matches_finite_difference():
+    vertices = _square(-0.1, 0.1, 0.45, 0., 1.)
+    colors = np.ones((4, 3), np.float32) * np.float32([0.9, 0.5, 0.2])
+    # Weights vary along both axes, or a pure y-shift's difference is 0.
+    weights = ((np.linspace(0, 1, W, dtype=np.float32)[None, :, None]
+                + 2.0 * np.linspace(0, 1, H, dtype=np.float32)[:, None, None])
+               * np.ones((1, 1, 3), np.float32))
+
+    def loss(t):
+        return torch.sum(_render_translated(
+            t, torch.tensor(vertices), torch.tensor(QUAD),
+            torch.tensor(colors)) * torch.tensor(weights))
+
+    got, = _port_grads(loss, np.zeros(2, np.float32))
+    want = np.asarray(jax.jit(jax.grad(lambda t: jnp.sum(
+        _render_translated_jax(t, vertices, QUAD, colors) * weights)))(
+            np.zeros(2, np.float32)))
+    _close(got, want)
+    for axis, step in enumerate([2.0 / W, 2.0 / H]):   # one pixel an axis
+        e = torch.zeros(2)
+        e[axis] = step / 2
+        with torch.no_grad():
+            fd = float(loss(e) - loss(-e)) / step
+        assert np.isfinite(fd) and abs(fd) > 1e-3
+        # Filter-based gradients: within ~30% of a one-pixel difference.
+        np.testing.assert_allclose(got[axis], fd, rtol=0.3)
+
+
+def test_gradients_work_through_pallas_backend():
+    vertices = _square(0., 0., 0.4, 0., 1.)
+    weights = np.random.RandomState(9).randn(H, W, 1).astype(np.float32)
+    ones = np.ones((4, 1), np.float32)
+
+    def loss(backend):
+        return lambda v: torch.sum(dirt_tpu_torch.rasterise(
+            torch.zeros(H, W, 1), v, torch.tensor(ones), torch.tensor(QUAD),
+            backend=backend) * torch.tensor(weights))
+
+    got, = _port_grads(loss("pallas"), vertices)
+    ref, = _port_grads(loss("reference"), vertices)
+    np.testing.assert_allclose(got, ref, rtol=1e-3, atol=1e-4)
+    want = np.asarray(jax.jit(jax.grad(lambda v: jnp.sum(dirt_tpu.rasterise(
+        jnp.zeros((H, W, 1)), v, ones, QUAD, backend="reference")
+        * weights)))(vertices))
+    _close(got, want)
+    assert np.abs(got).sum() > 0
+
+
+def test_rasterise_grad_debug_marks_dilated_pixels():
+    # The debug surface (the reference grad op's debug_thingy image) on
+    # the occluder scene of tests/test_dilation.py:145.
+    front = np.array([[-0.4, -0.4, 0., 1.], [-0.4, 0.4, 0., 1.],
+                      [0.4, 0.4, 0., 1.], [0.4, -0.4, 0., 1.]], np.float32)
+    back = np.array([[-4., -4., 1., 2.], [-4., 4., 1., 2.],
+                     [4., 4., 1., 2.], [4., -4., 1., 2.]], np.float32)
+    vertices = np.concatenate([front, back])
+    _, faces, colors = _occluded_scene()
+    grad_pixels = np.random.RandomState(2).randn(H, W, 3).astype(np.float32)
+    background = np.zeros((H, W, 3), np.float32)
+    grads, debug = dirt_tpu_torch.rasterise_grad_debug(
+        background, vertices, colors, faces, grad_pixels, device="cpu")
+    want, want_debug = dirt_tpu.rasterise_grad_debug(
+        background, vertices, colors, faces, grad_pixels)
+    debug = debug.numpy()
+    np.testing.assert_array_equal(debug, np.asarray(want_debug))
+    assert debug.shape == (H, W, 3)
+    # Channel 0: the dilation marker (1e-2 where dilated, 0 elsewhere).
+    assert (debug[..., 0] > 0).any(), "no dilation marked at a boundary"
+    assert set(np.unique(debug[..., 0])) <= {0.0, np.float32(1e-2)}
+    # Channels 1-2 echo the incoming gradient's channels 1-2.
+    np.testing.assert_array_equal(debug[..., 1], grad_pixels[..., 1])
+    np.testing.assert_array_equal(debug[..., 2], grad_pixels[..., 2])
+    assert grads.grad_vertices.shape == (8, 4)
+    _close(grads.grad_vertices.numpy(), np.asarray(want.grad_vertices))
