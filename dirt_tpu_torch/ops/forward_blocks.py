@@ -45,6 +45,12 @@ GPU shape for every schedule (16x16-pixel tiles, one thread per pixel;
 32-face blocks); the tests call the functions at the JAX package's shapes
 (4x128 tiles and 64-face blocks fused, 32x128 and 128 on slots) to
 compare with it bitwise.
+
+Under a torch.profiler session each stage records a span
+(utils/profiling): dirt.forward.table (face table, Morton sort),
+dirt.forward.hits (K4 and the block-hit reduction), dirt.forward.runs
+(the schedule; counters forward.visits and forward.dropped),
+dirt.forward.sweep and dirt.forward.finalize.
 """
 
 import collections
@@ -55,6 +61,7 @@ import os
 import torch
 
 from . import _cuda, forward_dense, forward_pallas, reference
+from ..utils import profiling
 
 TILE_H = 16
 TILE_W = 16
@@ -631,15 +638,18 @@ def _table_and_hits(vertices, vertex_colors, faces, height, width, tile_h,
     its [B, T, NB] block hits."""
     num_blocks = _cdiv(faces.shape[1], chunk)
     tiles_y, tiles_x = _cdiv(height, tile_h), _cdiv(width, tile_w)
-    face_data = forward_pallas._face_table(
-        vertices, vertex_colors, faces, height, width,
-        num_blocks * chunk - faces.shape[1])
-    if SPATIAL:
-        order = spatial_order(face_data, _BBOX, tile_h, tile_w)
-        face_data = torch.take_along_dim(face_data, order[..., None].long(),
-                                         dim=1).contiguous()
-    hit = hit_matrix(face_data, _BBOX, num_blocks, chunk, tiles_y, tiles_x,
-                     tile_h, tile_w, edge_cols=0, height=height, width=width)
+    with profiling.span("dirt.forward.table", vertices):
+        face_data = forward_pallas._face_table(
+            vertices, vertex_colors, faces, height, width,
+            num_blocks * chunk - faces.shape[1])
+        if SPATIAL:
+            order = spatial_order(face_data, _BBOX, tile_h, tile_w)
+            face_data = torch.take_along_dim(
+                face_data, order[..., None].long(), dim=1).contiguous()
+    with profiling.span("dirt.forward.hits", face_data):
+        hit = hit_matrix(face_data, _BBOX, num_blocks, chunk, tiles_y,
+                         tiles_x, tile_h, tile_w, edge_cols=0, height=height,
+                         width=width)
     return face_data, hit
 
 
@@ -647,18 +657,23 @@ def pack(vertices, vertex_colors, faces, height, width, tile_h, tile_w,
          chunk):
     """The fused schedule for a batch: (face_table [B*NB, chunk, D],
     starts [B*T], counts [B*T], block_ids [B*S], dropped [B]), with the
-    CSR ids folded over the batch."""
+    CSR ids folded over the batch.  Counts the live visits
+    (`forward.visits`) and `forward.dropped` in its span."""
     face_data, hit = _table_and_hits(vertices, vertex_colors, faces, height,
                                      width, tile_h, tile_w, chunk)
     batch, num_tiles, num_blocks = hit.shape
     num_slots = slots_per_image(num_tiles, num_blocks)
-    starts, counts, block_ids, dropped = build_runs(hit, num_slots)
-    boff = torch.arange(batch, dtype=torch.int32, device=faces.device)[:, None]
-    return (face_data.reshape(batch * num_blocks, chunk, -1),
-            (starts + num_slots * boff).reshape(-1),
-            counts.reshape(-1),
-            (block_ids + num_blocks * boff).reshape(-1),
-            dropped)
+    with profiling.span("dirt.forward.runs", hit):
+        starts, counts, block_ids, dropped = build_runs(hit, num_slots)
+        profiling.count("forward.visits", counts)
+        profiling.count("forward.dropped", dropped)
+        boff = torch.arange(batch, dtype=torch.int32,
+                            device=faces.device)[:, None]
+        return (face_data.reshape(batch * num_blocks, chunk, -1),
+                (starts + num_slots * boff).reshape(-1),
+                counts.reshape(-1),
+                (block_ids + num_blocks * boff).reshape(-1),
+                dropped)
 
 
 def pack_slots(vertices, vertex_colors, faces, height, width, tile_h, tile_w,
@@ -666,18 +681,23 @@ def pack_slots(vertices, vertex_colors, faces, height, width, tile_h, tile_w,
     """The slot schedule for a batch: (face_table [B*NB, chunk, D],
     slot_tile [B*S], slot_block [B*S], slot_dma [B*S], dropped [B]);
     slot_tile and slot_dma are folded over the batch, slot_block stays
-    per image (dirt_tpu's layout)."""
+    per image (dirt_tpu's layout).  Counts `forward.dropped` in its
+    span."""
     face_data, hit = _table_and_hits(vertices, vertex_colors, faces, height,
                                      width, tile_h, tile_w, chunk)
     batch, num_tiles, num_blocks = hit.shape
     num_slots = slots_per_image(num_tiles, num_blocks)
-    slot_tile, slot_block, slot_dma, dropped = build_slots(hit, num_slots)
-    boff = torch.arange(batch, dtype=torch.int32, device=faces.device)[:, None]
-    return (face_data.reshape(batch * num_blocks, chunk, -1),
-            (slot_tile + num_tiles * boff).reshape(-1),
-            slot_block.reshape(-1),
-            (slot_dma + num_blocks * boff).reshape(-1),
-            dropped)
+    with profiling.span("dirt.forward.runs", hit):
+        slot_tile, slot_block, slot_dma, dropped = build_slots(hit,
+                                                               num_slots)
+        profiling.count("forward.dropped", dropped)
+        boff = torch.arange(batch, dtype=torch.int32,
+                            device=faces.device)[:, None]
+        return (face_data.reshape(batch * num_blocks, chunk, -1),
+                (slot_tile + num_tiles * boff).reshape(-1),
+                slot_block.reshape(-1),
+                (slot_dma + num_blocks * boff).reshape(-1),
+                dropped)
 
 
 def rasterise_batch(background, vertices, vertex_colors, faces,
@@ -704,16 +724,20 @@ def rasterise_batch(background, vertices, vertex_colors, faces,
             chunk)
         sweep = (resident_sweep if takes_resident(face_table, batch)
                  else raster_sweep)
-        state = sweep(face_table, starts, counts, block_ids, channels,
-                      height, width, *schedule)
+        with profiling.span("dirt.forward.sweep", face_table):
+            state = sweep(face_table, starts, counts, block_ids, channels,
+                          height, width, *schedule)
     else:
         face_table, slot_tile, slot_block, slot_dma, dropped = pack_slots(
             vertices, vertex_colors, faces, height, width, tile_h, tile_w,
             chunk)
-        state = slot_sweep(face_table, slot_tile, slot_block, slot_dma,
-                           batch, channels, height, width, *schedule)
-    state = state.reshape(batch, num_tiles, channels + 9, tile_h * tile_w)
-    pixels, aux = forward_dense.finalize(state, background, height, width,
-                                         tiles_y, tiles_x,
-                                         tile_h=tile_h, tile_w=tile_w)
+        with profiling.span("dirt.forward.sweep", face_table):
+            state = slot_sweep(face_table, slot_tile, slot_block, slot_dma,
+                               batch, channels, height, width, *schedule)
+    with profiling.span("dirt.forward.finalize", state):
+        state = state.reshape(batch, num_tiles, channels + 9,
+                              tile_h * tile_w)
+        pixels, aux = forward_dense.finalize(state, background, height,
+                                             width, tiles_y, tiles_x,
+                                             tile_h=tile_h, tile_w=tile_w)
     return pixels, aux._replace(dropped=dropped)

@@ -26,6 +26,12 @@ use the JAX package's (8x128 tiles fused, 16x128 on slots, 128-face
 blocks) to compare.  K3 and K6 share one launch shape, reduce_shape: P
 pixel lanes per face, a ring of staged tiles and a colour group, computed
 from the shapes and the device's opt-in shared memory.
+
+Under a torch.profiler session each stage records a span
+(utils/profiling): dirt.backward.prepass (K2), dirt.backward.table,
+dirt.backward.hits (K4 at dilation 1 and the block-hit reduction),
+dirt.backward.runs (the schedule; counter backward.dropped),
+dirt.backward.reduce (K3 or K6) and dirt.backward.scatter.
 """
 
 import collections
@@ -35,6 +41,7 @@ import torch
 
 from . import (_cuda, backward, forward_blocks, grad_dense, grad_tables,
                prepass_fused)
+from ..utils import profiling
 
 TILE_H = 16
 TILE_W = 16
@@ -245,20 +252,22 @@ def _table_and_hits(vertices, faces, height, width, tile_h, tile_w, chunk):
     batch, num_faces = faces.shape[:2]
     num_blocks = _cdiv(num_faces, chunk)
     tiles_y, tiles_x = _cdiv(height, tile_h), _cdiv(width, tile_w)
-    face_data = grad_tables._grad_face_table(
-        vertices, faces, height, width, num_blocks * chunk - num_faces)
-    if forward_blocks.SPATIAL:
-        order = forward_blocks.spatial_order(face_data, _BBOX, tile_h,
-                                             tile_w)
-        face_data = torch.take_along_dim(face_data, order[..., None].long(),
-                                         dim=1).contiguous()
-    else:
-        order = torch.arange(num_blocks * chunk, dtype=torch.int32,
-                             device=faces.device).expand(batch, -1)
+    with profiling.span("dirt.backward.table", vertices):
+        face_data = grad_tables._grad_face_table(
+            vertices, faces, height, width, num_blocks * chunk - num_faces)
+        if forward_blocks.SPATIAL:
+            order = forward_blocks.spatial_order(face_data, _BBOX, tile_h,
+                                                 tile_w)
+            face_data = torch.take_along_dim(
+                face_data, order[..., None].long(), dim=1).contiguous()
+        else:
+            order = torch.arange(num_blocks * chunk, dtype=torch.int32,
+                                 device=faces.device).expand(batch, -1)
     # dilate=1: the gradient support is coverage dilated one pixel.
-    hit = forward_blocks.hit_matrix(
-        face_data, _BBOX, num_blocks, chunk, tiles_y, tiles_x, tile_h,
-        tile_w, edge_cols=12, height=height, width=width, dilate=1)
+    with profiling.span("dirt.backward.hits", face_data):
+        hit = forward_blocks.hit_matrix(
+            face_data, _BBOX, num_blocks, chunk, tiles_y, tiles_x, tile_h,
+            tile_w, edge_cols=12, height=height, width=width, dilate=1)
     return face_data, hit, order
 
 
@@ -266,40 +275,50 @@ def pack(vertices, faces, height, width, tile_h, tile_w, chunk):
     """The fused gradient schedule for a batch: (face_table [B*NB, chunk,
     _DF], starts [B*NB], counts [B*NB], tile_ids [B*S], row_face [B,
     NB*chunk]), CSR ids folded over the batch; row_face maps table rows to
-    faces."""
+    faces.  Counts `backward.dropped` in its span: the dilated hits make
+    this schedule a superset of the forward's, so it can truncate visits
+    where the forward's truncates none."""
     face_data, hit, order = _table_and_hits(vertices, faces, height, width,
                                             tile_h, tile_w, chunk)
     batch, num_tiles, num_blocks = hit.shape
     num_slots = forward_blocks.slots_per_image(num_blocks, num_tiles)
-    # Transposed CSR: runs are blocks, items are tiles.  The dropped count
-    # is the forward's to report (its schedule is a near-subset of this).
-    starts, counts, tile_ids, _ = forward_blocks.build_runs(
-        hit.transpose(1, 2), num_slots)
-    boff = torch.arange(batch, dtype=torch.int32, device=faces.device)[:, None]
-    return (face_data.reshape(batch * num_blocks, chunk, grad_tables._DF),
-            (starts + num_slots * boff).reshape(-1),
-            counts.reshape(-1),
-            (tile_ids + num_tiles * boff).reshape(-1),
-            order)
+    with profiling.span("dirt.backward.runs", hit):
+        # Transposed CSR: runs are blocks, items are tiles.
+        starts, counts, tile_ids, dropped = forward_blocks.build_runs(
+            hit.transpose(1, 2), num_slots)
+        profiling.count("backward.dropped", dropped)
+        boff = torch.arange(batch, dtype=torch.int32,
+                            device=faces.device)[:, None]
+        return (face_data.reshape(batch * num_blocks, chunk,
+                                  grad_tables._DF),
+                (starts + num_slots * boff).reshape(-1),
+                counts.reshape(-1),
+                (tile_ids + num_tiles * boff).reshape(-1),
+                order)
 
 
 def pack_slots(vertices, faces, height, width, tile_h, tile_w, chunk):
     """The slot gradient schedule for a batch: (face_table [B*NB, chunk,
     _DF], slot_run [B*S], slot_item [B*S], slot_dma [B*S], row_face [B,
     NB*chunk]); slot_run and slot_dma are folded over the batch,
-    slot_item stays per image (dirt_tpu's layout)."""
+    slot_item stays per image (dirt_tpu's layout).  Counts
+    `backward.dropped` in its span."""
     face_data, hit, order = _table_and_hits(vertices, faces, height, width,
                                             tile_h, tile_w, chunk)
     batch, num_tiles, num_blocks = hit.shape
     num_slots = forward_blocks.slots_per_image(num_blocks, num_tiles)
-    slot_run, slot_item, slot_dma, _ = forward_blocks.build_slots(
-        hit.transpose(1, 2), num_slots)
-    boff = torch.arange(batch, dtype=torch.int32, device=faces.device)[:, None]
-    return (face_data.reshape(batch * num_blocks, chunk, grad_tables._DF),
-            (slot_run + num_blocks * boff).reshape(-1),
-            slot_item.reshape(-1),
-            (slot_dma + num_tiles * boff).reshape(-1),
-            order)
+    with profiling.span("dirt.backward.runs", hit):
+        slot_run, slot_item, slot_dma, dropped = forward_blocks.build_slots(
+            hit.transpose(1, 2), num_slots)
+        profiling.count("backward.dropped", dropped)
+        boff = torch.arange(batch, dtype=torch.int32,
+                            device=faces.device)[:, None]
+        return (face_data.reshape(batch * num_blocks, chunk,
+                                  grad_tables._DF),
+                (slot_run + num_blocks * boff).reshape(-1),
+                slot_item.reshape(-1),
+                (slot_dma + num_tiles * boff).reshape(-1),
+                order)
 
 
 def rasterise_grad_batch(vertices, faces, pixels, grad_pixels, aux,
@@ -319,34 +338,41 @@ def rasterise_grad_batch(vertices, faces, pixels, grad_pixels, aux,
 
     if num_faces == 0:
         return grad_dense.no_face_grads(vertices, grad_pixels, cot)
-    planes, grad_background, dilated = prepass_fused.gradient_planes(
-        pixels, grad_pixels, aux, parts, color_cotangent, tile_h, tile_w)
+    with profiling.span("dirt.backward.prepass", pixels):
+        planes, grad_background, dilated = prepass_fused.gradient_planes(
+            pixels, grad_pixels, aux, parts, color_cotangent, tile_h,
+            tile_w)
 
     if FUSED:
         face_table, starts, counts, tile_ids, row_face = pack(
             vertices, faces, height, width, tile_h, tile_w, chunk)
-        face_grads = grad_reduce(face_table, planes, starts, counts,
-                                 tile_ids, channels, parts)
+        with profiling.span("dirt.backward.reduce", planes):
+            face_grads = grad_reduce(face_table, planes, starts, counts,
+                                     tile_ids, channels, parts)
     else:
         face_table, slot_run, slot_item, slot_dma, row_face = pack_slots(
             vertices, faces, height, width, tile_h, tile_w, chunk)
-        face_grads = slot_grad_reduce(face_table, planes, slot_run,
-                                      slot_item, slot_dma, channels, parts)
+        with profiling.span("dirt.backward.reduce", planes):
+            face_grads = slot_grad_reduce(face_table, planes, slot_run,
+                                          slot_item, slot_dma, channels,
+                                          parts)
 
     # Rows map 1:1 to faces in table order; padded tail rows reduce to
     # zeros and scatter harmlessly into vertex 0.
-    num_blocks = _cdiv(num_faces, chunk)
-    d_out = grad_dense.d_out_for(parts, channels)
-    face_grads = face_grads.reshape(batch, num_blocks * chunk, 3, d_out // 3)
-    faces_padded = torch.nn.functional.pad(
-        faces, (0, 0, 0, num_blocks * chunk - num_faces))
-    faces_padded = torch.take_along_dim(faces_padded,
-                                        row_face[..., None].long(), dim=1)
-    boff = (torch.arange(batch, dtype=torch.int32, device=device)
-            * num_vertices)[:, None, None]
-    grad_vertices, grad_vertex_colors = grad_dense.scatter_face_grads(
-        face_grads, faces_padded + boff, batch, num_vertices, channels,
-        parts)
-    return backward.RasteriseGrads(
-        grad_background, grad_vertices, grad_vertex_colors,
-        backward.debug_image(dilated, grad_pixels))
+    with profiling.span("dirt.backward.scatter", face_grads):
+        num_blocks = _cdiv(num_faces, chunk)
+        d_out = grad_dense.d_out_for(parts, channels)
+        face_grads = face_grads.reshape(batch, num_blocks * chunk, 3,
+                                        d_out // 3)
+        faces_padded = torch.nn.functional.pad(
+            faces, (0, 0, 0, num_blocks * chunk - num_faces))
+        faces_padded = torch.take_along_dim(faces_padded,
+                                            row_face[..., None].long(), dim=1)
+        boff = (torch.arange(batch, dtype=torch.int32, device=device)
+                * num_vertices)[:, None, None]
+        grad_vertices, grad_vertex_colors = grad_dense.scatter_face_grads(
+            face_grads, faces_padded + boff, batch, num_vertices, channels,
+            parts)
+        return backward.RasteriseGrads(
+            grad_background, grad_vertices, grad_vertex_colors,
+            backward.debug_image(dilated, grad_pixels))

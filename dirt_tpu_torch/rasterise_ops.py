@@ -31,6 +31,11 @@ the fused sweep-and-shade kernel over the same lists.  The gradient
 follows the forward's backend, unless DIRT_TPU_TORCH_GRAD_BACKEND names
 another ("xla", "blocks", "dense" or "mxu", the tensor-core masked sums
 of ops/grad_mxu.py).
+
+Under a torch.profiler session the autograd Functions record the entry
+spans dirt.forward and dirt.backward, and the deferred pair the shader's
+call as dirt.shade (utils/profiling); the blocks path records its stages
+inside them, the other backends none.
 """
 
 import torch
@@ -39,6 +44,7 @@ from .devices import input_device
 from .ops import backward as _backward
 from .ops import dispatch as _dispatch
 from .ops.reference import RasterAux
+from .utils import profiling
 
 
 def _as_inputs(background, vertices, vertex_colors, faces, device=None):
@@ -60,20 +66,22 @@ class _RasteriseBatch(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, background, vertices, vertex_colors, faces, backend):
-        pixels, aux = _dispatch.forward_batch(
-            background, vertices, vertex_colors, faces, backend)
-        ctx.save_for_backward(vertices, faces, pixels,
-                              *_aux_tensors(aux))
-        ctx.grad_implementation = _dispatch.grad_for_backend(backend)
+        with profiling.span("dirt.forward", vertices):
+            pixels, aux = _dispatch.forward_batch(
+                background, vertices, vertex_colors, faces, backend)
+            ctx.save_for_backward(vertices, faces, pixels,
+                                  *_aux_tensors(aux))
+            ctx.grad_implementation = _dispatch.grad_for_backend(backend)
         return pixels
 
     @staticmethod
     def backward(ctx, grad_pixels):
-        vertices, faces, pixels, *aux = ctx.saved_tensors
-        grad_background, grad_vertices, grad_vertex_colors = (
-            _backward.rasterise_grad_grouped(
-                vertices, faces, pixels, grad_pixels.contiguous(),
-                RasterAux(*aux), implementation=ctx.grad_implementation))
+        with profiling.span("dirt.backward", grad_pixels):
+            vertices, faces, pixels, *aux = ctx.saved_tensors
+            grad_background, grad_vertices, grad_vertex_colors = (
+                _backward.rasterise_grad_grouped(
+                    vertices, faces, pixels, grad_pixels.contiguous(),
+                    RasterAux(*aux), implementation=ctx.grad_implementation))
         return grad_background, grad_vertices, grad_vertex_colors, None, None
 
 
@@ -193,26 +201,28 @@ class _RasteriseGBuffer(torch.autograd.Function):
     @staticmethod
     def forward(ctx, background, vertices, attributes, faces, backend,
                 shaded):
-        gbuffer, aux = _dispatch.forward_batch(
-            background, vertices, attributes, faces, backend)
-        ctx.save_for_backward(vertices, faces, gbuffer,
-                              *_aux_tensors(aux))
-        ctx.grad_implementation = _dispatch.grad_for_backend(backend)
-        ctx.shaded = shaded
+        with profiling.span("dirt.forward", vertices):
+            gbuffer, aux = _dispatch.forward_batch(
+                background, vertices, attributes, faces, backend)
+            ctx.save_for_backward(vertices, faces, gbuffer,
+                                  *_aux_tensors(aux))
+            ctx.grad_implementation = _dispatch.grad_for_backend(backend)
+            ctx.shaded = shaded
         return gbuffer
 
     @staticmethod
     def backward(ctx, grad_gbuffer):
-        vertices, faces, gbuffer, *aux = ctx.saved_tensors
-        pixels = ctx.shaded.pixels
-        grad_pixels = ctx.shaded.grad_pixels
-        if grad_pixels is None:
-            grad_pixels = torch.zeros_like(pixels)
-        grad_background, grad_vertices, grad_attributes = (
-            _backward.rasterise_grad_deferred(
-                vertices, faces, pixels, grad_pixels, gbuffer,
-                grad_gbuffer.contiguous(), RasterAux(*aux),
-                implementation=ctx.grad_implementation))
+        with profiling.span("dirt.backward", grad_gbuffer):
+            vertices, faces, gbuffer, *aux = ctx.saved_tensors
+            pixels = ctx.shaded.pixels
+            grad_pixels = ctx.shaded.grad_pixels
+            if grad_pixels is None:
+                grad_pixels = torch.zeros_like(pixels)
+            grad_background, grad_vertices, grad_attributes = (
+                _backward.rasterise_grad_deferred(
+                    vertices, faces, pixels, grad_pixels, gbuffer,
+                    grad_gbuffer.contiguous(), RasterAux(*aux),
+                    implementation=ctx.grad_implementation))
         return (grad_background, grad_vertices, grad_attributes, None, None,
                 None)
 
@@ -257,7 +267,8 @@ def rasterise_batch_deferred(background_attributes, vertices,
     shaded = _ShadedCotangent()
     gbuffer = _RasteriseGBuffer.apply(background, vertices, attributes,
                                       faces, chosen, shaded)
-    pixels = shader_fn(gbuffer, *shader_additional_inputs)
+    with profiling.span("dirt.shade", gbuffer):
+        pixels = shader_fn(gbuffer, *shader_additional_inputs)
     return _ShadedPixels.apply(pixels, shaded)
 
 

@@ -320,16 +320,40 @@ def test_unknown_modes_raise():
 # -- utils/profiling ------------------------------------------------------
 
 def test_profiling_trace_annotate_and_sections(tmp_path):
+    """trace() writes one Chrome trace with the port's spans of its
+    session merged in, on their own track and on the profiler's clock: the
+    forward's entry span lies within 1 ms of a record_function range
+    around the same call."""
+    import json
+    import dirt_tpu_torch
     from dirt_tpu_torch.utils import profiling
-    timer = profiling.SectionTimer()
+    verts, faces = _mesh(())
+    clip = torch.cat([torch.as_tensor(verts) * 0.5,
+                      torch.ones(len(verts), 1)], 1)[None]
+    colors = torch.ones_like(clip[..., :3])
+    faces = torch.as_tensor(faces, dtype=torch.int32)[None]
+    render = lambda: dirt_tpu_torch.rasterise_batch(
+        torch.zeros(1, 16, 16, 3), clip, colors, faces, backend="blocks")
+    render()                                # warm, and off: no record
     with profiling.trace(str(tmp_path)):
-        with profiling.annotate("dirt_section"), timer.section("render"):
-            lighting.vertex_normals(*_mesh(()), device="cpu")
-        with timer.section("render"):
-            pass
+        with torch.profiler.record_function("warm"):
+            pass                            # a session's first range is slow
+        with torch.profiler.record_function("dirt_section"):
+            render()
     traces = list(tmp_path.glob("*.json"))
-    assert len(traces) == 1 and "dirt_section" in traces[0].read_text()
-    report = timer.report().splitlines()
-    assert report[0].startswith("render: ") and report[-1].startswith(
-        "total: ")
-    assert list(timer.sections) == ["render"]
+    assert len(traces) == 1
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    outer, = [e for e in events if e.get("name") == "dirt_section"
+              and e.get("cat") == "user_annotation"]
+    spans = [e for e in events if e.get("cat") == profiling.SPAN_CATEGORY]
+    assert {e["name"] for e in spans} >= {"dirt.forward",
+                                          "dirt.forward.sweep"}
+    assert {e["pid"] for e in spans} == {profiling.SPAN_PID}
+    entry, = [e for e in spans if e["name"] == "dirt.forward"]
+    assert abs(entry["ts"] - outer["ts"]) < 1e3
+    assert abs(entry["ts"] + entry["dur"] - outer["ts"] - outer["dur"]) < 1e3
+    sweep, = [e for e in spans if e["name"] == "dirt.forward.sweep"]
+    assert sweep["args"]["parent"] == "dirt.forward"
+    runs, = [e for e in spans if e["name"] == "dirt.forward.runs"]
+    assert runs["args"]["forward.dropped"] == 0
+    assert runs["args"]["forward.visits"] > 0
