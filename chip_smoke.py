@@ -16,7 +16,7 @@ failure:
   2. build: the twelve CUDA kernels, compiled from dirt_tpu_torch/csrc/;
   3. kernels vs their plain PyTorch versions on the card, at the paths'
      shapes and on a 100x100 image, a camera-crossing scene and a
-     1 x 256^2 x 8192-face cylinder: hit plane (K4), the sweeps' states
+     1 x 256^2 x 8192-face cylinder: block hits (K4), the sweeps' states
      (K1, K7, the slot sweep K5b and, where the image's table fits a
      block's shared memory, the resident sweep K5; K5b and K5 also ==
      K1's state), the plane stack (K2, also with the opt-in diagonal
@@ -42,9 +42,12 @@ failure:
      count zeroed (every group empty), on the zoom scene and on a
      1,536-face scene (16 x 256^2, whose table nears a block's shared
      memory); K4 on the forward and the gradient pack's tables of the
-     bench, zoom, 8192-face and 1,536-face scenes and a ragged cut of the
-     100x100 one, at dilate 0 and 1, with and without the edge cull, ==
-     its plain version bit for bit;
+     bench, zoom, 8192-face, 1,536-face and camera-crossing scenes, the
+     bench's with degenerate rows (empty, reversed and non-finite bboxes,
+     NaN edges), a ragged cut of the 100x100 one and 70,000 images of 5
+     faces, each padded to blocks of 8, 32, 64 and 128 faces, at dilate 0
+     and 1, with and without the edge cull: block hits and window counts
+     == its plain version's bit for bit;
   4. paths, each with every launch counter reset just before and read just
      after, failing if a kernel of the path was not launched:
      a. blocks (the default): rasterise_batch forward + backward; image 0
@@ -157,7 +160,8 @@ failure:
      projection's half-width 0.05 for 0.25: many busy tiles) and the
      large one (K1, K5b, K7, K8; K5 on the bench, zoom and 1,536-face
      scenes; K4 at dilate 0 and 1 on all four), profiler device ms and
-     CUDA-event ms; each kernel, by
+     CUDA-event ms; K4 alone on both packs' tables of the 65,536-face
+     cylinder at 4 and 32 x 512^2 beside its bound; each kernel, by
      CUDA-event ms and by the profiler's device ms of its CUDA kernel (a
      kernel the profiler does not see fails the run), against its plain
      version, its bound (for
@@ -353,16 +357,22 @@ def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def hit_work(face_data, num_tiles, edge_col):
-    """K4's bytes and operations on a [B, F, D] face table and `num_tiles`
-    tiles: the columns it reads of each face once (the four bbox columns,
-    and the nine edge coefficients where the edge cull is on, edge_col >=
-    0), the [B, T, F] float plane it writes, and OPS_HIT a (tile, face)."""
+def hit_work(face_data, bbox_cols, num_blocks, chunk, tiles_y, tiles_x,
+             tile_h, tile_w, edge_col, *_):
+    """K4's bytes and operations on a [B, NB * chunk, D] face table (its
+    hit_blocks arguments): the columns it reads of each face once (the
+    four bbox columns, and the nine edge coefficients where the edge cull
+    is on), the [B, T, NB] bytes of block hits it writes (zero-filled
+    first, once), and OPS_HIT a (tile, face) of its windows (the tiles
+    its faces' bbox compares can reach, forward_blocks.hit_windows)."""
+    from dirt_tpu_torch.ops import forward_blocks as fb
     batch, num_faces = face_data.shape[:2]
     columns = 4 + (9 if edge_col is not None and edge_col >= 0 else 0)
-    pairs = batch * num_tiles * num_faces
-    return ((batch * num_faces * columns + pairs)
-            * face_data.element_size(), pairs * OPS_HIT)
+    windows = int(fb.hit_windows(face_data, bbox_cols, num_blocks, chunk,
+                                 tiles_y, tiles_x, tile_h, tile_w).sum())
+    return (batch * num_faces * columns * face_data.element_size()
+            + batch * tiles_y * tiles_x * num_blocks,
+            windows * chunk * OPS_HIT)
 
 
 def segment_sum(planes, clip, faces, channels):
@@ -506,8 +516,8 @@ def kernel_inputs(scene):
         clip, colors, faces, height, width, th, tw, chunk)
     # The sorted face table as the hit test sees it: [B, NB*chunk, D].
     face_data = table.reshape(batch, -1, table.shape[-1])
-    hit_args = (face_data, fb._BBOX, tiles_y, tiles_x, th, tw, 0, height,
-                width, 0)
+    hit_args = (face_data, fb._BBOX, face_data.shape[1] // chunk, chunk,
+                tiles_y, tiles_x, th, tw, 0, height, width, 0)
     sweep_args = (table, starts, counts, block_ids, channels, height, width,
                   tiles_x, tiles_y * tiles_x, th, tw)
     state_bytes = batch * tiles_y * tiles_x * (channels + 9) * pix * 4
@@ -608,7 +618,7 @@ def kernel_inputs(scene):
     visits = int(counts.sum())
     listed = int(dcounts.sum())
     work = {
-        "hit_plane": hit_work(face_data, tiles_y * tiles_x, hit_args[6]),
+        "hit_plane": hit_work(*hit_args),
         "raster_sweep": (_nbytes(table, starts, counts) + visits * 4
                          + state_bytes,
                          visits * chunk * pix * OPS_FACE_TEST),
@@ -658,8 +668,8 @@ def kernel_inputs(scene):
                      2 * mxu_matches * ncols * 3, PEAK_BF16_OPS_PER_MS),
     }
     calls = {
-        "hit_plane": (lambda: fb.hit_plane(*hit_args),
-                      lambda: fb.hit_plane_plain(*hit_args)),
+        "hit_plane": (lambda: fb.hit_blocks(*hit_args),
+                      lambda: fb.hit_blocks_plain(*hit_args)),
         "raster_sweep": (lambda: fb.raster_sweep(*sweep_args),
                          lambda: fb.raster_sweep_plain(*sweep_args)),
         "slot_sweep": (lambda: fb.slot_sweep(*slot_args),
@@ -1054,10 +1064,11 @@ def check_list_walk(tag, scene, lengths=(3728, 301, 1)):
 
 
 def hit_tables(scene):
-    """K4's inputs on `scene` as the packs give them: the forward pack's
-    face table [B, F, D] (bbox columns, edge coefficients from column 0,
-    dilate 0) and the gradient pack's (its bbox columns, edges from
-    column 12, dilate 1), with the tile grid."""
+    """K4's inputs (hit_blocks' arguments) on `scene` as the packs give
+    them: the forward pack's face table [B, NB * chunk, D] (bbox columns,
+    edge coefficients from column 0, dilate 0) and the gradient pack's
+    (its bbox columns, edges from column 12, dilate 1), with the block
+    and tile grid."""
     from dirt_tpu_torch.ops import forward_blocks as fb, grad_blocks as gb
     background, clip, colors, faces, _ = scene
     batch, height, width, _ = background.shape
@@ -1069,25 +1080,80 @@ def hit_tables(scene):
             fb.TILE_W)
     ggrid = (_cdiv(height, gb.TILE_H), _cdiv(width, gb.TILE_W), gb.TILE_H,
              gb.TILE_W)
-    return {0: (table.reshape(batch, -1, table.shape[-1]), fb._BBOX, *grid,
-                0, height, width, 0),
-            1: (gtable.reshape(batch, -1, gtable.shape[-1]), gb._BBOX,
+    rows = lambda t: t.reshape(batch, -1, t.shape[-1])
+    return {0: (rows(table), fb._BBOX, table.shape[0] // batch, fb.CHUNK,
+                *grid, 0, height, width, 0),
+            1: (rows(gtable), gb._BBOX, gtable.shape[0] // batch, gb.CHUNK,
                 *ggrid, 12, height, width, 1)}
+
+
+def rechunk(args, chunk):
+    """hit_blocks' arguments `args` at another `chunk`: the table padded
+    past its rows to a multiple of `chunk` with rows no bbox compare
+    passes (forward_pallas._pad_row's empty bbox)."""
+    from dirt_tpu_torch.ops import forward_pallas
+    face_data, bbox_cols = args[:2]
+    rows = face_data.shape[1]
+    pad = _cdiv(rows, chunk) * chunk - rows
+    if pad:
+        empty = face_data[:, :1].clone()
+        big = float(forward_pallas._BIG)
+        for col, value in zip(bbox_cols, (big, -1.0, big, -1.0)):
+            empty[..., col] = value
+        face_data = torch.cat([face_data, empty.expand(-1, pad, -1)], dim=1)
+    return (face_data.contiguous(), bbox_cols, (rows + pad) // chunk, chunk,
+            *args[4:])
+
+
+def degenerate_rows(face_data, bbox_cols, edge_col):
+    """A copy of the table with rows made degenerate, three of each kind
+    from row 8 on, a kind every 8 rows: empty (r1 < r0 by far, the pad
+    row's), reversed by less than a tile (r1 = r0 - 3, still passing the
+    compares), a NaN, +inf and -inf bound, huge finite bounds and NaN edge
+    coefficients.  Needs 67 rows or more."""
+    from dirt_tpu_torch.ops import forward_pallas
+    fd = face_data.clone()
+    r0c, r1c, c0c, c1c = bbox_cols
+    big = float(forward_pallas._BIG)
+    kinds = [
+        {r0c: big, r1c: -1.0, c0c: big, c1c: -1.0},
+        {r1c: fd[:, 9:12, r0c] - 3.0, c1c: fd[:, 9:12, c0c] - 2.0},
+        {r0c: float("nan")},
+        {r1c: float("inf")},
+        {c0c: float("-inf"), c1c: float("inf")},
+        {r0c: -3e38, r1c: 3e38},
+        {c0c: 1e30, c1c: 2e30},
+        {edge_col: float("nan"), edge_col + 4: float("nan")},
+    ]
+    for k, kind in enumerate(kinds):
+        for col, value in kind.items():
+            fd[:, 8 + 8 * k: 8 + 8 * k + 3, col] = value
+    return fd
+
+
+HIT_CHUNKS = (8, 32, 64, 128)
 
 
 def check_hit_plane(scenes, ragged):
     """K4 on each of `scenes` ({tag: scene}) and on the forward table of
     scene `ragged` (a 100 x 100 image: 7 x 7 tiles) cut to 3 images and
-    300 faces (ragged against the blocks and tile groups) and to 5 faces
+    300 faces (ragged against the blocks and thread blocks) and to 5 faces
     of one image repeated 70,000 times (more images than a grid's y or z
-    dimension holds): the forward pack's and the gradient pack's tables,
-    each at dilate 0 and 1, with its edge cull and without (edge_col -1):
-    == its plain version bit for bit."""
+    dimension holds), and on the tables of the first scene with
+    degenerate_rows: the forward pack's and the gradient pack's tables,
+    each padded to chunks of HIT_CHUNKS faces, at dilate 0 and 1, with its
+    edge cull and without (edge_col -1): block hits and window counts ==
+    its plain version's bit for bit."""
     from dirt_tpu_torch.ops import forward_blocks as fb
     cases = {}
     for tag, scene in scenes.items():
         for dilate, args in hit_tables(scene).items():
             cases[f"{tag}, {('forward', 'gradient')[dilate]} table"] = args
+    first = next(iter(scenes))
+    for name in ("forward", "gradient"):
+        args = cases[f"{first}, {name} table"]
+        cases[f"{first} degenerate rows, {name} table"] = (
+            degenerate_rows(args[0], args[1], args[8]), *args[1:])
     table, *rest = hit_tables(ragged)[0]
     cases["ragged 3x100^2x300f"] = (table[:3, :300].contiguous(), *rest)
     # More images than a grid's y or z dimension may hold.
@@ -1095,21 +1161,64 @@ def check_hit_plane(scenes, ragged):
         table[:1, :5].expand(70000, -1, -1).contiguous(), *rest)
     kept = {}
     for tag, args in cases.items():
-        for dilate in (0, 1):
-            for edges in (args[6], None):
-                call = (*args[:6], edges, *args[7:9], dilate)
-                got, want = fb.hit_plane(*call), fb.hit_plane_plain(*call)
-                torch.cuda.synchronize()
-                if not torch.equal(got, want):
-                    fail(f"{tag}: hit_plane at dilate {dilate}, edges "
-                         f"{edges}, differs from its plain version in "
-                         f"{int((got != want).sum())} of {got.numel()}")
+        for chunk in HIT_CHUNKS:
+            chunked = rechunk(args, chunk)
+            for dilate in (0, 1):
+                for edges in (args[8], None):
+                    call = (*chunked[:8], edges, *chunked[9:11], dilate)
+                    counts = [torch.full(
+                        (chunked[0].shape[0], chunked[2]), -1,
+                        dtype=torch.int32, device=args[0].device)
+                        for _ in range(2)]
+                    got = fb.hit_blocks(*call, window=counts[0])
+                    want = fb.hit_blocks_plain(*call, window=counts[1])
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        fail(f"{tag}: hit_blocks at chunk {chunk}, dilate "
+                             f"{dilate}, edges {edges}, differs from its "
+                             f"plain version in "
+                             f"{int((got != want).sum())} of {got.numel()}")
+                    if not torch.equal(counts[0], counts[1]):
+                        fail(f"{tag}: K4's window counts at chunk {chunk} "
+                             f"differ from hit_windows' in "
+                             f"{int((counts[0] != counts[1]).sum())} of "
+                             f"{counts[0].numel()}")
         kept[tag] = tuple(args[0].shape)
-    phase("kernels", f"K4 hit_plane, blocks of {fb.HIT_FACES} faces x "
-          f"{fb.HIT_TILES} tiles, on (images, faces, columns) " + "; ".join(
+    phase("kernels", f"K4 block hits, warp votes over tile windows, chunks "
+          f"{HIT_CHUNKS}, on (images, faces, columns) " + "; ".join(
               f"{tag} {shape}" for tag, shape in kept.items())
-          + ": at dilate 0 and 1, with and without the edge cull, == its "
-          "plain version bit for bit OK")
+          + ": at dilate 0 and 1, with and without the edge cull, hits and "
+          "window counts == its plain version bit for bit OK")
+
+
+def time_hit_cells(device, card_line):
+    """K4 alone on the benchmark's mesh (the 65,536-face cylinder at 512^2)
+    at 4 and 32 views, both packs' tables: profiler device ms of the
+    kernel and of the whole call (the output's zero-fill too) and
+    CUDA-event ms, beside its bound (hit_work: its [B, T, NB] bytes
+    written and the table's columns read once), and the windows' share
+    of the (tile, block) pairs."""
+    from dirt_tpu_torch.ops import forward_blocks as fb
+    for batch in (4, 32):
+        scene = bench_scene(batch, 512, 8192, device)
+        parts = []
+        for dilate, args in hit_tables(scene).items():
+            run = lambda: fb.hit_blocks(*args)
+            nbytes, ops = hit_work(*args)
+            bound_ms, bound_by = bound(nbytes, ops)
+            pairs = args[0].shape[0] * args[2] * args[4] * args[5]
+            windows = int(fb.hit_windows(*args[:8]).sum())
+            call_ms = device_profile(run, PROFILE_STEPS)[0]
+            parts.append(
+                f"dilate {dilate}: kernel {device_time(run, 'hit_plane'):.4f}"
+                f" ms device, with the zero-fill "
+                + ("not measured" if call_ms is None else f"{call_ms:.4f} ms")
+                + f", {time_ms(run, STEPS):.4f} ms CUDA events, bound "
+                f"{bound_ms:.4f} ms ({bound_by}: {nbytes} bytes), windows "
+                f"{100.0 * windows / pairs:.3f}% of {pairs} pairs")
+        del scene
+        phase("timing", f"K4 at {batch}x512^2x65536f: " + "; ".join(parts)
+              + f" on {card_line}")
 
 
 def check_resident_walk(scenes):
@@ -1290,7 +1399,7 @@ def grad_backend(name):
 # dirt_tpu_torch.ops, wrapper, plain).  The paths call every wrapper
 # through its module's namespace, so `recording` can stand in for it.
 WRAPPERS = {
-    "hit_plane": ("forward_blocks", "hit_plane", "hit_plane_plain"),
+    "hit_plane": ("forward_blocks", "hit_blocks", "hit_blocks_plain"),
     "raster_sweep": ("forward_blocks", "raster_sweep", "raster_sweep_plain"),
     "slot_sweep": ("forward_blocks", "slot_sweep", "slot_sweep_plain"),
     "resident_sweep": ("forward_blocks", "resident_sweep",
@@ -2831,7 +2940,7 @@ def time_ms(fn, reps):
 # of its key: the instantiations carry template arguments), and the
 # reductions' among them.
 DEVICE_KERNELS = {
-    "hit_plane": "hit_plane_kernel", "raster_sweep": "raster_sweep_kernel",
+    "hit_plane": "hit_block_kernel", "raster_sweep": "raster_sweep_kernel",
     "slot_sweep": "slot_sweep_kernel",
     "resident_sweep": "resident_sweep_kernel",
     "dense_sweep": "dense_sweep_kernel",
@@ -2944,8 +3053,8 @@ def time_sweeps(scenes, card_line):
         pallas = (background, dtiles_x, dnum_tiles, dth, dtw,
                   forward_dense.CHUNK)
         hits = hit_tables((background, clip, colors, faces, None))
-        runs = {"hit_plane": lambda: fb.hit_plane(*hits[0]),
-                "hit_plane dilate 1": lambda: fb.hit_plane(*hits[1]),
+        runs = {"hit_plane": lambda: fb.hit_blocks(*hits[0]),
+                "hit_plane dilate 1": lambda: fb.hit_blocks(*hits[1]),
                 "raster_sweep": lambda: fb.raster_sweep(*csr),
                 "slot_sweep": lambda: fb.slot_sweep(*slots, batch,
                                                     *geometry),
@@ -2960,18 +3069,8 @@ def time_sweeps(scenes, card_line):
         for name, args in (("hit_plane", hits[0]),
                            ("hit_plane dilate 1", hits[1])):
             if name in names:
-                ms = bound(*hit_work(args[0], args[2] * args[3], args[6]))[0]
+                ms = bound(*hit_work(*args))[0]
                 times.append(f"{name} bound {ms:.6f} ms")
-        if "hit_plane" in names:
-            # K4's yardstick: PyTorch's fill of a plane of the same shape,
-            # its writes alone.
-            plane = torch.empty(batch, num_tiles, hits[0][0].shape[1],
-                                device=background.device)
-            fill_ms = kernel_device_ms(lambda: plane.fill_(1.0),
-                                       "FillFunctor", PROFILE_STEPS)
-            times.append(f"fill of K4's {tuple(plane.shape)} plane "
-                         + ("not measured" if fill_ms is None
-                            else f"{fill_ms:.4f} ms device"))
         busy = counts[counts > 0].float()
         listed = dcounts[dcounts > 0].float()
         phase("timing", f"sweeps on {tag} ({int(busy.numel())} busy runs "
@@ -3087,7 +3186,8 @@ def main():
     check_hit_plane({"bench 16x256^2x512f": scene,
                      "zoom 16x256^2x512f": zoom_scene,
                      "1x256^2x8192f": large_scene,
-                     "16x256^2x1536f": scene_1536}, scene_100)
+                     "16x256^2x1536f": scene_1536,
+                     "camera-crossing": crossing}, scene_100)
 
     # 4. Paths; each kernel's launches are those of the first path that
     # runs it (K1-K4 blocks, K7/K9 dense, K8 pallas, K10 mxu, K5b/K6
@@ -3211,6 +3311,7 @@ def main():
               f"on {card_line}")
     time_sweeps(sweep_scenes(scene, zoom_scene, large_scene, scene_1536),
                 card_line)
+    time_hit_cells(device, card_line)
     time_accum(device, card_line)
     for name, ms in steps.items():
         phase("timing", f"{name} step fwd+bwd {sizes[name]}: median "

@@ -9,7 +9,14 @@ The schedule is the JAX package's fused-CSR one:
     coherent whatever the draw order;
   * the hit test (hit_matrix, kernel K4 on CUDA) keeps a (tile, block)
     pair when some member face's bbox overlaps the tile and its
-    edge-sign regions can reach it (the conservative half-plane cull);
+    edge-sign regions can reach it (the conservative half-plane cull).
+    K4 decides the [B, T, NB] block hits itself: a block's faces bound a
+    window of tiles their bbox compares can pass (hit_windows), each
+    member face is tested on the window's tiles, a warp vote ORs the
+    block's tests, and every (tile, block) outside the window is a miss
+    left in the zero-filled output, so its work and traffic scale with
+    the tiles the faces reach and the 1-byte output, not with T x F (the
+    CPU runs the plain [B, T, F] plane and its `any`, hit_blocks_plain);
   * build_runs lays the hits out as CSR runs: per tile, the live block
     ids in ascending order, under a static slot budget whose overflow is
     counted in RasterAux.dropped;
@@ -48,9 +55,9 @@ compare with it bitwise.
 
 Under a torch.profiler session each stage records a span
 (utils/profiling): dirt.forward.table (face table, Morton sort),
-dirt.forward.hits (K4 and the block-hit reduction), dirt.forward.runs
-(the schedule; counters forward.visits and forward.dropped),
-dirt.forward.sweep and dirt.forward.finalize.
+dirt.forward.hits (K4; counter forward.hit_window, the windows' tiles),
+dirt.forward.runs (the schedule; counters forward.visits and
+forward.dropped), dirt.forward.sweep and dirt.forward.finalize.
 """
 
 import collections
@@ -230,21 +237,21 @@ def takes_resident(face_table, num_images):
 
 
 # --------------------------------------------------------------------------
-# K4: the hit plane
+# K4: the block hits
 # --------------------------------------------------------------------------
 
 HIT_PLANE = _cuda.Kernel(
-    "hit_plane", "dirt_hit_plane",
-    [_cuda.ptr, _cuda.ptr] + [_cuda.i32] * 13 + [_cuda.f32] * 2
-    + [_cuda.ptr],
+    "hit_plane", "dirt_hit_blocks",
+    [_cuda.ptr] * 3 + [_cuda.i32] * 15 + [_cuda.f32] * 2 + [_cuda.ptr],
     replaces="dirt_tpu/ops/forward_blocks.py:322", source="hit_plane.cu")
 
-# K4's launch shape, which the kernel sizes itself: a block of HIT_FACES
-# threads, one face each, loops over a group of HIT_TILES tiles of one
-# image (hit_plane.cu's kHitFaces and kHitTiles; the CPU tests hold its
-# grid to writing every entry of the plane once).
-HIT_FACES = 128
-HIT_TILES = 16
+# K4's launch shape, which the kernel sizes itself: thread blocks of
+# HIT_THREADS threads, a face each, where a block's faces fit a warp
+# (chunk <= 32), else of `chunk` threads, up to HIT_MAX_CHUNK; the chunk
+# is a power of two (hit_plane.cu's kHitThreads and kMaxChunk; the CPU
+# tests hold its grid to visiting each (image, block) once).
+HIT_THREADS = 128
+HIT_MAX_CHUNK = 1024
 
 
 def _edge_keep(row, edge_cols, tile_r0, tile_c0, tile_h, tile_w, height,
@@ -307,40 +314,105 @@ def hit_plane_plain(face_data, bbox_cols, tiles_y, tiles_x, tile_h, tile_w,
     return keep.float()
 
 
-def hit_plane(face_data, bbox_cols, tiles_y, tiles_x, tile_h, tile_w,
-              edge_cols, height, width, dilate):
-    """K4 wrapper: the [B, T, F] keep plane of hit_plane_plain, by the CUDA
-    kernel for CUDA tensors and by the plain version for CPU tensors."""
+def tile_range(lo, hi, tile, tiles):
+    """([...] lo, [...] hi) float32: the tiles along one axis whose two
+    bbox compares a face's pixel bounds [lo, hi] can pass, widened by one
+    tile on each side and clamped to [0, tiles - 1]; every tile where a
+    bound is not finite; none (lo > hi) where none can pass.  hit_plane.cu's
+    tile_range, operation for operation."""
+    finite = torch.isfinite(lo) & torch.isfinite(hi)
+    a = (torch.ceil((lo - (tile - 1)) / tile) - 1.0).clamp(min=0.0)
+    b = (torch.floor(hi / tile) + 1.0).clamp(max=float(tiles - 1))
+    return (torch.where(finite, a, 0.0),
+            torch.where(finite, b, float(tiles - 1)))
+
+
+def hit_windows(face_data, bbox_cols, num_blocks, chunk, tiles_y, tiles_x,
+                tile_h, tile_w):
+    """[B, NB] int32: the tiles of each block's window in K4, the bounding
+    rectangle of its faces' tile_range rows and columns (0 where no face
+    can pass a bbox compare)."""
+    r0, r1, c0, c1 = (face_data[..., c] for c in bbox_cols)
+    ry0, ry1 = tile_range(r0, r1, tile_h, tiles_y)
+    cx0, cx1 = tile_range(c0, c1, tile_w, tiles_x)
+    reach = (ry0 <= ry1) & (cx0 <= cx1)
+    block = lambda v, fill: torch.where(reach, v, fill).reshape(
+        *v.shape[:-1], num_blocks, chunk)
+    rows = (block(ry1, -1.0).amax(-1) - block(ry0, float(tiles_y)).amin(-1)
+            + 1).clamp(min=0)
+    cols = (block(cx1, -1.0).amax(-1) - block(cx0, float(tiles_x)).amin(-1)
+            + 1).clamp(min=0)
+    return (rows * cols).to(torch.int32)
+
+
+def hit_blocks_plain(face_data, bbox_cols, num_blocks, chunk, tiles_y,
+                     tiles_x, tile_h, tile_w, edge_cols, height, width,
+                     dilate, window=None):
+    """[B, T, NB] bool: a block hits a tile iff some member face is kept
+    by hit_plane_plain; where `window` ([B, NB] int32) is given, it gets
+    hit_windows' tile counts."""
+    if window is not None:
+        window.copy_(hit_windows(face_data, bbox_cols, num_blocks, chunk,
+                                 tiles_y, tiles_x, tile_h, tile_w))
+    keep = hit_plane_plain(face_data, bbox_cols, tiles_y, tiles_x, tile_h,
+                           tile_w, edge_cols, height, width, dilate)
+    return (keep > 0.5).reshape(face_data.shape[0], tiles_y * tiles_x,
+                                num_blocks, chunk).any(dim=-1)
+
+
+def hit_blocks(face_data, bbox_cols, num_blocks, chunk, tiles_y, tiles_x,
+               tile_h, tile_w, edge_cols, height, width, dilate,
+               window=None):
+    """K4 wrapper: hit_blocks_plain's block hits (and window counts), by
+    the CUDA kernel for CUDA tensors and by the plain version for CPU
+    tensors.  The table holds num_blocks * chunk rows; on CUDA the chunk
+    is a power of two up to HIT_MAX_CHUNK."""
     if not _cuda.on_cuda(face_data):
-        return hit_plane_plain(face_data, bbox_cols, tiles_y, tiles_x,
-                               tile_h, tile_w, edge_cols, height, width,
-                               dilate)
+        return hit_blocks_plain(face_data, bbox_cols, num_blocks, chunk,
+                                tiles_y, tiles_x, tile_h, tile_w, edge_cols,
+                                height, width, dilate, window)
     batch, num_faces, width_d = face_data.shape
+    if not (0 < chunk <= HIT_MAX_CHUNK and chunk & (chunk - 1) == 0):
+        raise ValueError(f"K4 takes a chunk that is a power of two up to "
+                         f"{HIT_MAX_CHUNK}, got {chunk}")
+    if num_faces != num_blocks * chunk:
+        raise ValueError(f"K4 takes num_blocks * chunk = "
+                         f"{num_blocks * chunk} table rows, got {num_faces}")
     num_tiles = tiles_y * tiles_x
-    keep = torch.empty(batch, num_tiles, num_faces, device=face_data.device)
+    hit = torch.zeros(batch, num_tiles, num_blocks, dtype=torch.bool,
+                      device=face_data.device)
     HIT_PLANE(
         _cuda.check("face_data", face_data, torch.float32),
-        _cuda.check("keep", keep, torch.float32),
-        batch, num_faces, width_d, num_tiles, tiles_x, tile_h, tile_w,
-        *bbox_cols, -1 if edge_cols is None else edge_cols, dilate,
-        2.0 / width, 2.0 / height, _cuda.stream())
-    return keep
+        _cuda.check("hit", hit, torch.bool),
+        None if window is None else _cuda.check(
+            "window", window, torch.int32, (batch, num_blocks)),
+        batch, num_faces, width_d, num_blocks, chunk, tiles_y, tiles_x,
+        tile_h, tile_w, *bbox_cols, -1 if edge_cols is None else edge_cols,
+        dilate, 2.0 / width, 2.0 / height, _cuda.stream())
+    return hit
 
 
 def hit_matrix(face_data, bbox_cols, num_blocks, chunk,
                tiles_y, tiles_x, tile_h, tile_w,
-               edge_cols=None, height=None, width=None, dilate=0):
-    """[B, T, NB] bool: block hits tile iff some member face is kept by the
-    hit plane (bbox overlap, plus, when EDGE_CULL is on, the half-plane
+               edge_cols=None, height=None, width=None, dilate=0,
+               counter=None):
+    """[B, T, NB] bool: block hits tile iff some member face passes the
+    hit test (bbox overlap, plus, when EDGE_CULL is on, the half-plane
     cull with `edge_cols`, the column of the first of 9 consecutive edge
-    coefficients)."""
+    coefficients): K4.  While a profiler session records, the windows'
+    tile counts go to the counter named `counter`, where one is given."""
     if not EDGE_CULL:
         edge_cols = None
-    keep = hit_plane(face_data, bbox_cols, tiles_y, tiles_x, tile_h, tile_w,
-                     edge_cols, height, width, dilate)
-    batch = face_data.shape[0]
-    return (keep > 0.5).reshape(batch, tiles_y * tiles_x, num_blocks,
-                                chunk).any(dim=-1)
+    window = None
+    if counter is not None and profiling.recording():
+        window = torch.empty(face_data.shape[0], num_blocks,
+                             dtype=torch.int32, device=face_data.device)
+    hit = hit_blocks(face_data, bbox_cols, num_blocks, chunk, tiles_y,
+                     tiles_x, tile_h, tile_w, edge_cols, height, width,
+                     dilate, window)
+    if window is not None:
+        profiling.count(counter, window)
+    return hit
 
 
 # --------------------------------------------------------------------------
@@ -649,7 +721,7 @@ def _table_and_hits(vertices, vertex_colors, faces, height, width, tile_h,
     with profiling.span("dirt.forward.hits", face_data):
         hit = hit_matrix(face_data, _BBOX, num_blocks, chunk, tiles_y,
                          tiles_x, tile_h, tile_w, edge_cols=0, height=height,
-                         width=width)
+                         width=width, counter="forward.hit_window")
     return face_data, hit
 
 

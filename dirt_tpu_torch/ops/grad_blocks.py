@@ -29,7 +29,7 @@ from the shapes and the device's opt-in shared memory.
 
 Under a torch.profiler session each stage records a span
 (utils/profiling): dirt.backward.prepass (K2), dirt.backward.table,
-dirt.backward.hits (K4 at dilation 1 and the block-hit reduction),
+dirt.backward.hits (K4 at dilation 1; counter backward.hit_window),
 dirt.backward.runs (the schedule; counter backward.dropped),
 dirt.backward.reduce (K3 or K6) and dirt.backward.scatter.
 """
@@ -267,7 +267,8 @@ def _table_and_hits(vertices, faces, height, width, tile_h, tile_w, chunk):
     with profiling.span("dirt.backward.hits", face_data):
         hit = forward_blocks.hit_matrix(
             face_data, _BBOX, num_blocks, chunk, tiles_y, tiles_x, tile_h,
-            tile_w, edge_cols=12, height=height, width=width, dilate=1)
+            tile_w, edge_cols=12, height=height, width=width, dilate=1,
+            counter="backward.hit_window")
     return face_data, hit, order
 
 

@@ -11,7 +11,8 @@ dirt_tpu/utils/profiling.py).
     exactly while a torch.profiler session is active; otherwise a span is
     one shared null context after a single flag read, and a count returns
     at once, making no event, tensor or record.
-  * ``records()``: the recorded spans, oldest first.
+  * ``records()``: the recorded spans, oldest first;
+  * ``recording()``: whether they record now.
 
 A span records its name, its parent (the span open on the same thread at
 its entry), the entry call it belongs to (the id of its outermost span),
@@ -141,6 +142,12 @@ def span(name, tensor):
     if not _profiler._is_profiler_enabled:
         return _NULL
     return _Span(name, tensor.device if tensor.is_cuda else None)
+
+
+def recording():
+    """True while a torch.profiler session is active: spans and counters
+    record, and a stage may make the tensor a counter reads."""
+    return _profiler._is_profiler_enabled
 
 
 def count(name, tensor):

@@ -394,11 +394,12 @@ def test_pallas_raster_edge_lists(device):
 
 
 def test_hit_plane_tile_loop(device):
-    # K4's face-resident tile loop on the forward and the gradient packs'
-    # tables (dilate 0 and 1, with and without the edge cull) and on a
+    # K4's warp votes over tile windows on the forward and the gradient
+    # packs' tables (dilate 0 and 1, with and without the edge cull, at
+    # chunks 8, 32, 64 and 128), on rows with degenerate bboxes, on a
     # ragged cut (3 images, 300 faces, 7 x 7 tiles) and on 70,000 images
-    # of 5 faces (past a grid's 65,535 in y or z): == its plain version bit
-    # for bit.
+    # of 5 faces (past a grid's 65,535 in y or z): block hits and window
+    # counts == its plain version's bit for bit.
     chip_smoke.check_hit_plane(
         {"bench": chip_smoke.bench_scene(2, 64, 16, device),
          "crossing": chip_smoke.crossing_scene(device, size=100)},

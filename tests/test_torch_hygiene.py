@@ -213,8 +213,8 @@ def test_cpu_runs_plain_and_other_devices_raise():
         _cuda.on_cuda(torch.zeros(2, 3, device="meta"))
     table = torch.zeros(1, 4, 36, device="meta")
     with pytest.raises(ValueError):
-        forward_blocks.hit_plane(table, (20, 21, 22, 23), 1, 1, 16, 16, 0,
-                                 16, 16, 0)
+        forward_blocks.hit_blocks(table, (20, 21, 22, 23), 1, 4, 1, 1, 16,
+                                  16, 0, 16, 16, 0)
 
 
 def test_kernel_check_rejects_cpu_tensors():

@@ -320,16 +320,19 @@ def test_list_walk_constants_mirror_the_kernels():
     assert forward_pallas.PALLAS_RASTER.argtypes.count(_cuda.i32) == 16
     assert forward_dense.DENSE_SWEEP.argtypes.count(_cuda.i32) == 16
     assert forward_blocks.RESIDENT_SWEEP.argtypes.count(_cuda.i32) == 17
-    # K4's launch shape (faces a block, tiles a block), from which its
-    # launcher sizes the grid, and its geometry arguments (no grid).
+    # K4's launch shape (threads a thread block where a block's faces fit
+    # a warp, the largest chunk), from which its launcher sizes the grid,
+    # and its arguments: table, hits and window counter, then the
+    # geometry (no grid).
     hit = (CSRC / "hit_plane.cu").read_text()
-    assert re.search(rf"constexpr int kHitFaces = "
-                     rf"{forward_blocks.HIT_FACES};", hit)
-    assert re.search(rf"constexpr int kHitTiles = "
-                     rf"{forward_blocks.HIT_TILES};", hit)
-    assert "(num_faces + kHitFaces - 1) / kHitFaces" in hit
-    assert "(num_tiles + kHitTiles - 1) / kHitTiles" in hit
-    assert forward_blocks.HIT_PLANE.argtypes.count(_cuda.i32) == 13
+    assert re.search(rf"constexpr int kHitThreads = "
+                     rf"{forward_blocks.HIT_THREADS};", hit)
+    assert re.search(rf"constexpr int kMaxChunk = "
+                     rf"{forward_blocks.HIT_MAX_CHUNK};", hit)
+    assert "const int threads = chunk > kWarp ? chunk : kHitThreads;" in hit
+    assert "(num_faces + threads - 1) / threads" in hit
+    assert forward_blocks.HIT_PLANE.argtypes[:3] == [_cuda.ptr] * 3
+    assert forward_blocks.HIT_PLANE.argtypes.count(_cuda.i32) == 15
 
 
 def test_device_kernel_names():

@@ -3,7 +3,8 @@ blocks path, run on CPU tensors through the kernels' plain versions: no
 record and no CUDA event without a profiler; under one, the span tree of
 the forward and the gradient with its parents and entries, self times
 that sum to the entry's duration, counters equal to the schedules' sums
-by hand, and truncated visits counted in both schedules.  The export of
+by hand and to K4's window counts, and truncated visits counted in both
+schedules.  The export of
 the spans by trace() is tests/test_torch_helpers.py's profiling test."""
 
 import numpy as np
@@ -132,7 +133,9 @@ def test_the_span_tree_under_a_profiler(recorder, deferred):
                for r in spans)
     counters = {r.name: set(r.counters) for r in spans if r.counters}
     assert counters == {
+        "dirt.forward.hits": {"forward.hit_window"},
         "dirt.forward.runs": {"forward.visits", "forward.dropped"},
+        "dirt.backward.hits": {"backward.hit_window"},
         "dirt.backward.runs": {"backward.dropped"}}
 
 
@@ -153,8 +156,14 @@ def test_counters_equal_the_schedules_sums(recorder, monkeypatch, slots):
     background, clip, colors, faces = scene(segments=32)
     tiles = (SIZE, SIZE, forward_blocks.TILE_H, forward_blocks.TILE_W,
              forward_blocks.CHUNK)
-    _, hit = forward_blocks._table_and_hits(clip, colors, faces, *tiles)
-    _, grad_hit, _ = grad_blocks._table_and_hits(clip, faces, *tiles)
+    table, hit = forward_blocks._table_and_hits(clip, colors, faces, *tiles)
+    grad_table, grad_hit, _ = grad_blocks._table_and_hits(clip, faces,
+                                                          *tiles)
+    grid = (hit.shape[2], forward_blocks.CHUNK, -(-SIZE // tiles[2]),
+            -(-SIZE // tiles[3]), *tiles[2:4])
+    windows = [int(forward_blocks.hit_windows(t, bbox, *grid).sum())
+               for t, bbox in ((table, forward_blocks._BBOX),
+                               (grad_table, grad_blocks._BBOX))]
     with profile(activities=[ProfilerActivity.CPU]):
         forward = forward_blocks.pack(clip, colors, faces, *tiles)
         grad_blocks.pack(clip, faces, *tiles)
@@ -168,7 +177,9 @@ def test_counters_equal_the_schedules_sums(recorder, monkeypatch, slots):
     _, grad_dropped = _hand_counts(grad_hit, forward_blocks.slots_per_image(
         *grad_hit.shape[2:0:-1]))
     assert counters == {"forward.visits": visits, "forward.dropped": dropped,
-                        "backward.dropped": grad_dropped}
+                        "backward.dropped": grad_dropped,
+                        "forward.hit_window": windows[0],
+                        "backward.hit_window": windows[1]}
     assert visits == int(forward[2].sum())
     assert dropped == int(forward[4].sum())
     assert dropped == 0 and (grad_dropped > 0) == (slots > 0)
