@@ -3,11 +3,12 @@
 The window keeps, for a few pool entries drawn from the seed, the
 outputs of the latest step that took each: the loss, one image's pixels
 (drawn from the seed too) and background gradient, and every other
-leaf's whole gradient (rotations, colours; deferred: albedo, normals,
-light).  Once the window has closed and the program's state is freed,
-the plain reference recomputes the same steps from the benchmark's own
-inputs, and three numbers are compared, each with the limit the cell's
-checks file gives:
+leaf's whole gradient (the rotations and the entry point's leaves).
+Once the window has closed and the program's state is freed, the plain
+reference (the entry module's `reference` on the benchmark's scene
+math) recomputes the same steps from the benchmark's own inputs, and
+three numbers are compared, each with the limit the cell's checks file
+gives:
 
   pixels  the widest gap of a kept pixel, absolute (pixels lie in [0, 1]);
   grads   the widest gap of a gradient, over the leaf's largest
@@ -23,16 +24,17 @@ import math
 
 import torch
 
-from ..reference import autograd, scene
+from ..reference import scene
 from .program import outputs
 
 NUMBERS = ("pixels", "grads", "loss")
 
 
-def reference_outputs(inputs, traffic, kept, round_operands=False):
-    """The reference's outputs of the kept steps ({entry: outputs}), each
-    step one entry's forward, loss and backward; with `round_operands`,
-    the control's."""
+def reference_outputs(cell, inputs, kept, round_operands=False):
+    """The reference's outputs of the kept steps ({pool entry: outputs}),
+    each step one pool entry's forward, loss and backward; with
+    `round_operands`, the control's."""
+    traffic, entry_point = cell.traffic, cell.entry_module()
     device = inputs.homogeneous.device
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -46,22 +48,10 @@ def reference_outputs(inputs, traffic, kept, round_operands=False):
             rotation = leaf(inputs.pool[entry])
             clip = scene.clip_vertices(inputs.homogeneous, rotation, view,
                                        projection, round_operands)
-            if inputs.deferred:
-                leaves = dict(background=leaf(inputs.background),
-                              albedo=leaf(inputs.albedo),
-                              normals=leaf(inputs.normals),
-                              light=leaf(inputs.light))
-                attributes = scene.gbuffer_attributes(
-                    clip, leaves["albedo"], leaves["normals"])
-                pixels = autograd.rasterise_batch_deferred(
-                    leaves["background"], clip, attributes, inputs.faces,
-                    lambda gbuffer: scene.shader(gbuffer, leaves["light"]))
-            else:
-                leaves = dict(background=leaf(inputs.background),
-                              colors=leaf(inputs.colors))
-                pixels = autograd.rasterise_batch(
-                    leaves["background"], clip, leaves["colors"],
-                    inputs.faces)
+            leaves = dict(background=leaf(inputs.background),
+                          **{name: leaf(inputs.tensors[name])
+                             for name in entry_point.LEAVES})
+            pixels = entry_point.reference(clip, leaves, inputs)
             loss = (pixels * inputs.weights).sum()
             loss.backward()
             got[entry] = outputs(loss.item(), pixels, rotation, leaves,

@@ -3,12 +3,12 @@ PyTorch port, as a user who fits poses and colours to images runs it.
 
 Step k takes pool entry k mod P as its rotation leaf, builds clip-space
 vertices with dirt_tpu_torch.matrices (rodrigues, then the camera's view
-and projection, made once), calls the cell's entry point
-(rasterise_batch, or rasterise_batch_deferred with the benchmark's
-shader), takes loss = sum(pixels * weights), back-propagates it to the
-rotations, the colours (deferred: albedo, normals and light) and the
-background, and reads the loss back to the host.  The backend is the
-port's default dispatch.
+and projection, made once), calls the cell's entry point through its
+module's hooks (entries/<entry>.py: its scene work, its call into the
+port, its shader), takes loss = sum(pixels * weights), back-propagates
+it to the rotations, the entry point's leaves and the background, and
+reads the loss back to the host.  The backend is the port's default
+dispatch.
 """
 
 import contextlib
@@ -16,8 +16,6 @@ import time
 from collections import defaultdict
 
 import torch
-
-from ..reference import scene
 
 _NO_SPAN = contextlib.nullcontext()
 
@@ -49,10 +47,14 @@ class Program:
     `kept` ({entry: image}), the outputs of the latest step that took
     each entry."""
 
-    def __init__(self, inputs, traffic, kept, spans):
+    def __init__(self, cell, inputs, kept, spans):
         import dirt_tpu_torch
         from dirt_tpu_torch import matrices
+        traffic, entry = cell.traffic, cell.entry_module()
         self.port = dirt_tpu_torch
+        self.entry = entry
+        self.scene = entry.scene
+        self.rasterise = entry.rasterise
         self.rodrigues = matrices.rodrigues
         self.inputs = inputs
         self.spans = spans
@@ -70,18 +72,13 @@ class Program:
         leaf = lambda x: x.detach().clone().requires_grad_(True)
         self.rotations = [leaf(r) for r in inputs.pool]
         self.background = leaf(inputs.background)
-        if inputs.deferred:
-            self.leaves = dict(background=self.background,
-                               albedo=leaf(inputs.albedo),
-                               normals=leaf(inputs.normals),
-                               light=leaf(inputs.light))
-        else:
-            self.leaves = dict(background=self.background,
-                               colors=leaf(inputs.colors))
+        self.leaves = dict(background=self.background,
+                           **{name: leaf(inputs.tensors[name])
+                              for name in entry.LEAVES})
 
     def _shade(self, gbuffer):
         with self.spans("shader"):
-            return scene.shader(gbuffer, self.leaves["light"])
+            return self.entry.shade(gbuffer, self.leaves)
 
     def step(self, k):
         """Step k; returns the loss as a Python float."""
@@ -94,17 +91,10 @@ class Program:
             clip = (torch.einsum("vi,bij->bvj", inputs.homogeneous,
                                  self.rodrigues(rotation))
                     @ self.view @ self.projection)
-            if inputs.deferred:
-                attributes = scene.gbuffer_attributes(
-                    clip, leaves["albedo"], leaves["normals"])
+            values = self.scene(clip, leaves, inputs)
         with span("rasterise"):
-            if inputs.deferred:
-                pixels = self.port.rasterise_batch_deferred(
-                    self.background, clip, attributes, inputs.faces,
-                    self._shade)
-            else:
-                pixels = self.port.rasterise_batch(
-                    self.background, clip, leaves["colors"], inputs.faces)
+            pixels = self.rasterise(self.port, self.background, clip, values,
+                                    inputs.faces, self._shade)
         with span("loss"):
             loss = (pixels * inputs.weights).sum()
         with span("backward"):

@@ -69,10 +69,10 @@ def measure(cell, seed, seconds, trace, device, setup_start):
     on time.perf_counter's clock."""
     traffic, config = cell.traffic, cell.config
     batch = config["batch"]
-    data = cell_inputs.make_inputs(config, traffic, seed, device)
+    data = cell_inputs.make_inputs(cell, seed, device)
     kept = cell_inputs.kept_samples(seed, traffic, batch)
     spans = Spans()
-    program = Program(data, traffic, kept, spans)
+    program = Program(cell, data, kept, spans)
     for k in range(traffic["pool"]):
         program.step(k)
         program.keep()
@@ -120,7 +120,7 @@ def measure(cell, seed, seconds, trace, device, setup_start):
     gc.collect()
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
-    want = check.reference_outputs(data, traffic, kept)
+    want = check.reference_outputs(cell, data, kept)
     values = check.numbers(kept_outputs, want)
     failed = sum(1 for loss in losses if not math.isfinite(loss))
     return Result(readings=readings, steps=len(losses), failed=failed,

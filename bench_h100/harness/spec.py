@@ -1,12 +1,14 @@
-"""Cells, configurations, traffic mixes, limits and per-layer metric
-readers, found by name.
+"""Cells, configurations, traffic mixes, limits, meshes, entry points and
+per-layer metric readers, found by name.
 
 BENCHMARK.json at the checkout's root lists the cells as (configuration,
 traffic) pairs.  A configuration is the JSON file its entry names; a
-traffic mix is traffic/<name>.json, a cell's limits checks/<cell>.json
-and a per-layer metric's reader metrics/<metric name>.py, all under this
-benchmark's folder.  A new cell, configuration, mix or metric is new
-files and new BENCHMARK.json entries: no file here names one.
+traffic mix is traffic/<name>.json, a cell's limits checks/<cell>.json,
+the mesh of a configuration meshes/<its mesh.kind>.py, the entry point
+of a mix entries/<its entry>.py and a per-layer metric's reader
+metrics/<metric name>.py, all under this benchmark's folder.  A new
+cell, configuration, mix, mesh, entry point or metric is new files and
+new BENCHMARK.json entries: no file here names one.
 """
 
 import importlib.util
@@ -27,6 +29,31 @@ class Cell:
     limits: dict         # checks/<cell>.json: {number: limit}
     end_to_end: list     # BENCHMARK.json's end_to_end entries of this cell
     per_layer: list      # its per_layer entries that read this cell
+    bench_dir: Path = BENCH_DIR  # the folder of its mesh and entry modules
+
+    def __post_init__(self):
+        # A missing mesh or entry module fails here, before any set-up.
+        self._path("meshes")
+        self._path("entries")
+
+    def _path(self, folder):
+        key, name = (("mesh.kind", self.config["mesh"]["kind"])
+                     if folder == "meshes"
+                     else ("entry", self.traffic["entry"]))
+        path = Path(self.bench_dir) / folder / f"{name}.py"
+        if not path.is_file():
+            raise FileNotFoundError(f"cell {self.name!r}: its {key} {name!r} "
+                                    f"needs {path}, which does not exist")
+        return path
+
+    def mesh_module(self):
+        """meshes/<the configuration's mesh.kind>.py: its `make`."""
+        return load_module(self._path("meshes"), "bench_mesh_")
+
+    def entry_module(self):
+        """entries/<the traffic mix's entry>.py: the step's hooks
+        (entries/__init__.py)."""
+        return load_module(self._path("entries"), "bench_entry_")
 
 
 def load_benchmark(root=ROOT):
@@ -63,14 +90,20 @@ def load_cell(name, root=ROOT, bench_dir=BENCH_DIR):
         limits=read(Path(bench_dir) / "checks" / f"{name}.json")["limits"],
         end_to_end=end_to_end,
         per_layer=[m for m in benchmark["per_layer"]
-                   if _reads(m, name, reported)])
+                   if _reads(m, name, reported)],
+        bench_dir=Path(bench_dir))
+
+
+def load_module(path, prefix):
+    """The module of the file `path`, named `prefix` + its stem."""
+    spec = importlib.util.spec_from_file_location(
+        prefix + path.stem.replace(".", "_"), path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def metric_reader(name, bench_dir=BENCH_DIR):
     """The `read(trace)` function of metrics/<name>.py."""
-    path = Path(bench_dir) / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        "bench_metric_" + name.replace(".", "_"), path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.read
+    return load_module(Path(bench_dir) / "metrics" / f"{name}.py",
+                       "bench_metric_").read

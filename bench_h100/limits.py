@@ -24,11 +24,10 @@ def control_numbers(cell, seed, device):
     """The control's numbers on `seed`: the TF32 reference's kept
     outputs against the float32 reference's."""
     from bench_h100.harness import check, inputs
-    data = inputs.make_inputs(cell.config, cell.traffic, seed, device)
+    data = inputs.make_inputs(cell, seed, device)
     kept = inputs.kept_samples(seed, cell.traffic, cell.config["batch"])
-    want = check.reference_outputs(data, cell.traffic, kept)
-    got = check.reference_outputs(data, cell.traffic, kept,
-                                  round_operands=True)
+    want = check.reference_outputs(cell, data, kept)
+    got = check.reference_outputs(cell, data, kept, round_operands=True)
     return check.numbers(got, want)
 
 

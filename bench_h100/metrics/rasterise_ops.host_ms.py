@@ -1,8 +1,9 @@
 """rasterise_ops.host_ms: host wall ms a step inside the benchmark's spans
 around the entry-point call and loss.backward(), over every step of a
 traced run's window: the port's dispatch, autograd and launch work on the
-host, and every wait for the device inside those calls (the blocks pack
-and gradient read sizes back), so a device-side gain moves it too."""
+host, and every wait for the device inside those calls (at the blocks
+packs' synchronising host-to-device copies), so a device-side gain moves
+it too."""
 
 
 def read(readings):

@@ -61,9 +61,26 @@ def test_configs(bench):
         # Only the batch may move from the source: never a width or a
         # size of the mesh or the image.
         assert set(config["reduced"]) <= {"batch"}
-        assert held["faces"] == 8 * held["mesh"]["segments"]
+        mesh = spec.load_module(spec.BENCH_DIR / "meshes" /
+                                f"{held['mesh']['kind']}.py", "bench_mesh_")
+        assert held["faces"] == len(mesh.make(held["mesh"])["faces"])
     used = {w["config"] for w in bench["workloads"]}
     assert used == {c["name"] for c in bench["configs"]}
+
+
+def test_every_mesh_kind_and_entry_has_its_module():
+    """Each configuration and traffic mix of the folder, listed in
+    BENCHMARK.json or kept for later."""
+    read = lambda path: json.loads(path.read_text())
+    configs = sorted((spec.BENCH_DIR / "configs").glob("*.json"))
+    mixes = sorted((spec.BENCH_DIR / "traffic").glob("*.json"))
+    assert configs and mixes
+    for path in configs:
+        kind = read(path)["mesh"]["kind"]
+        assert (spec.BENCH_DIR / "meshes" / f"{kind}.py").is_file(), path
+    for path in mixes:
+        entry = read(path)["entry"]
+        assert (spec.BENCH_DIR / "entries" / f"{entry}.py").is_file(), path
 
 
 def test_workloads_have_their_files(bench):

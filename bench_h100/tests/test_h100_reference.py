@@ -12,6 +12,7 @@ from dirt_tpu_torch.ops import backward as port_backward
 from dirt_tpu_torch.ops import reference as port_reference
 
 from bench_h100.harness import inputs
+from bench_h100.meshes.cylinder import make_cylinder
 from bench_h100.reference import autograd, forward, gradient, scene
 
 from .conftest import cell_from_files
@@ -31,7 +32,7 @@ def soup(seed, batch=2, size=40, num_faces=80, crossing=False):
 
 
 def cylinder(batch=3, size=48, segments=24, right=0.25, seed=0):
-    vertices, faces = inputs.make_cylinder(0.5, 1.0, 0.1, 0.2, segments)
+    vertices, faces = make_cylinder(0.5, 1.0, 0.1, 0.2, segments)
     homogeneous = torch.cat([torch.as_tensor(vertices),
                              torch.ones(len(vertices), 1)], 1)
     generator = torch.Generator().manual_seed(seed)
@@ -98,11 +99,11 @@ def test_deferred_entry_against_the_ports_blocks_path(blocks_on_cpu):
                            "cyl512_b16_256.deferred")
     cell.config.update(batch=2, height=40, width=40)
     cell.config["mesh"]["segments"] = 16
-    data = inputs.make_inputs(cell.config, cell.traffic, 11, "cpu")
+    data = inputs.make_inputs(cell, 11, "cpu")
     view, projection = scene.camera(0.25, 3.0, "cpu")
     clip = scene.clip_vertices(data.homogeneous, data.pool[0], view,
                                projection)
-    light = data.light
+    light = data.tensors["light"]
 
     def entry(port):
         def run(bg, v, albedo, normals, lit):
@@ -115,7 +116,8 @@ def test_deferred_entry_against_the_ports_blocks_path(blocks_on_cpu):
                                                      data.faces, shade)
         return run
 
-    tensors = (data.background, clip, data.albedo, data.normals, light)
+    tensors = (data.background, clip, data.tensors["albedo"],
+               data.tensors["normals"], light)
     want = _grads(entry(False), _leaves(*tensors), data.weights)
     got = _grads(entry(True), _leaves(*tensors), data.weights)
     assert torch.equal(got[0], want[0])

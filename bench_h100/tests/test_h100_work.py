@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from bench_h100.harness import inputs, work
+from bench_h100.harness import work
+from bench_h100.meshes.cylinder import make_cylinder
 from bench_h100.reference import forward, scene
 
 CHIP_SMOKE_K1 = (51547484, 336199680)   # (bytes, operations)
@@ -25,7 +26,7 @@ def bench_coverage():
     """(fragments, covered pixels) of bench.py's scene: numpy seed 0's
     rotations, the benchmark's scene math, the reference's coverage."""
     rng = np.random.RandomState(0)
-    vertices, faces = inputs.make_cylinder(0.5, 1.0, 0.1, 0.2, 64)
+    vertices, faces = make_cylinder(0.5, 1.0, 0.1, 0.2, 64)
     homogeneous = torch.cat([torch.as_tensor(vertices),
                              torch.ones(len(vertices), 1)], 1)
     rotations = torch.as_tensor(
