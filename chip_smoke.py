@@ -13,10 +13,12 @@ failure:
 
   1. device: torch and CUDA versions, the card's name and power limit;
      no CUDA device is a failure (nothing runs on the CPU);
-  2. build: the twelve CUDA kernels, compiled from dirt_tpu_torch/csrc/;
+  2. build: the thirteen CUDA kernels, compiled from dirt_tpu_torch/csrc/;
   3. kernels vs their plain PyTorch versions on the card, at the paths'
      shapes and on a 100x100 image, a camera-crossing scene and a
-     1 x 256^2 x 8192-face cylinder: block hits (K4), the sweeps' states
+     1 x 256^2 x 8192-face cylinder: block hits (K4), the CSR runs of
+     the forward's hits (K12: starts, counts, ids and dropped), the
+     sweeps' states
      (K1, K7, the slot sweep K5b and, where the image's table fits a
      block's shared memory, the resident sweep K5; K5b and K5 also ==
      K1's state), the plane stack (K2, also with the opt-in diagonal
@@ -161,7 +163,11 @@ failure:
      large one (K1, K5b, K7, K8; K5 on the bench, zoom and 1,536-face
      scenes; K4 at dilate 0 and 1 on all four), profiler device ms and
      CUDA-event ms; K4 alone on both packs' tables of the 65,536-face
-     cylinder at 4 and 32 x 512^2 beside its bound; each kernel, by
+     cylinder at 4 and 32 x 512^2 beside its bound; K12 on both packs'
+     hits of that cylinder at 32 x 512^2 (check_build_runs: == its plain
+     version at the pack's budget and a truncating one, both
+     orientations, then its device ms beside its bound and the plain
+     version's ms); each kernel, by
      CUDA-event ms and by the profiler's device ms of its CUDA kernel (a
      kernel the profiler does not see fails the run), against its plain
      version, its bound (for
@@ -215,7 +221,8 @@ OPS_SHADE_BASE = 14   # per pixel of K8's shading, plus 6 per channel
 OPS_ACCUM_SCAN = 1    # one (row, pixel) id compare of K11
 OPS_ACCUM_MATCH = 6   # the four sums of one matching pixel of K11
 PATH_KERNELS = {
-    "blocks": ("hit_plane", "raster_sweep", "grad_prepass", "grad_reduce"),
+    "blocks": ("hit_plane", "build_runs", "raster_sweep", "grad_prepass",
+               "grad_reduce"),
     "dense": ("dense_sweep", "grad_prepass", "dense_grad_reduce"),
     "pallas": ("pallas_raster", "hit_plane", "grad_prepass", "grad_reduce"),
     "mxu": ("hit_plane", "raster_sweep", "grad_prepass", "mxu_grad"),
@@ -375,6 +382,28 @@ def hit_work(face_data, bbox_cols, num_blocks, chunk, tiles_y, tiles_x,
             windows * chunk * OPS_HIT)
 
 
+def runs_work(hit, num_slots):
+    """K12's bytes on the [B, R, I] bool hits under a budget of
+    `num_slots`: the hit bytes, read once, and the ids it keeps, written
+    once (4 bytes each)."""
+    from dirt_tpu_torch.ops import forward_blocks as fb
+    kept = int(fb.build_runs_plain(hit, num_slots)[1].sum())
+    return hit.numel() + 4 * kept, 0
+
+
+def same_runs(tag, got, want):
+    """Fails unless K12's four outputs (starts, counts, item_ids,
+    dropped) are build_runs_plain's bit for bit."""
+    for what, k, p in zip(("starts", "counts", "item_ids", "dropped"), got,
+                          want, strict=True):
+        if k.shape != p.shape or k.dtype != p.dtype:
+            fail(f"{tag}: build_runs {what} is {k.dtype} {tuple(k.shape)}, "
+                 f"its plain version's {p.dtype} {tuple(p.shape)}")
+        if not torch.equal(k, p):
+            fail(f"{tag}: build_runs {what} differ from its plain version "
+                 f"in {int((k != p).sum())} of {p.numel()}")
+
+
 def segment_sum(planes, clip, faces, channels):
     """The per-face gradient rows of parts "all" ([B*F, 3 * (3 + C)], by
     original face) as a segment sum, the library form of the sums K3 and
@@ -518,6 +547,8 @@ def kernel_inputs(scene):
     face_data = table.reshape(batch, -1, table.shape[-1])
     hit_args = (face_data, fb._BBOX, face_data.shape[1] // chunk, chunk,
                 tiles_y, tiles_x, th, tw, 0, height, width, 0)
+    hits = fb.hit_blocks(*hit_args)
+    runs_args = (hits, fb.slots_per_image(*hits.shape[1:]))
     sweep_args = (table, starts, counts, block_ids, channels, height, width,
                   tiles_x, tiles_y * tiles_x, th, tw)
     state_bytes = batch * tiles_y * tiles_x * (channels + 9) * pix * 4
@@ -619,6 +650,7 @@ def kernel_inputs(scene):
     listed = int(dcounts.sum())
     work = {
         "hit_plane": hit_work(*hit_args),
+        "build_runs": runs_work(*runs_args),
         "raster_sweep": (_nbytes(table, starts, counts) + visits * 4
                          + state_bytes,
                          visits * chunk * pix * OPS_FACE_TEST),
@@ -670,6 +702,8 @@ def kernel_inputs(scene):
     calls = {
         "hit_plane": (lambda: fb.hit_blocks(*hit_args),
                       lambda: fb.hit_blocks_plain(*hit_args)),
+        "build_runs": (lambda: fb.build_runs(*runs_args),
+                       lambda: fb.build_runs_plain(*runs_args)),
         "raster_sweep": (lambda: fb.raster_sweep(*sweep_args),
                          lambda: fb.raster_sweep_plain(*sweep_args)),
         "slot_sweep": (lambda: fb.slot_sweep(*slot_args),
@@ -734,6 +768,10 @@ def compare_kernels(tag, scene):
         fail(f"{tag}: hit_plane differs from its plain version in "
              f"{int((keep_k != keep_p).sum())} of {keep_k.numel()} entries")
     errors["hit_plane"] = _max_abs(keep_k, keep_p)
+    runs_k, runs_p = (f() for f in calls["build_runs"])
+    torch.cuda.synchronize()
+    same_runs(tag, runs_k, runs_p)
+    errors["build_runs"] = 0.0
 
     channels = info["channels"]
     finalized, states = {}, {}
@@ -821,7 +859,8 @@ def compare_kernels(tag, scene):
                 "in two calls)" if "resident_sweep" in calls else
                 "K5 not run (the image's table exceeds a block's shared "
                 "memory)")
-    phase("kernels", f"{tag}: K4 hit_plane ==, K1 raster_sweep == (and "
+    phase("kernels", f"{tag}: K4 hit_plane ==, K12 build_runs == "
+          f"(starts, counts, ids, dropped), K1 raster_sweep == (and "
           f"== in two calls), K5b slot_sweep == (state, pixels; state == "
           f"K1's; == in two calls), {resident}, K7 "
           f"dense_sweep == (state, pixels), K8 pallas_raster == (pixels, "
@@ -1221,6 +1260,52 @@ def time_hit_cells(device, card_line):
               + f" on {card_line}")
 
 
+def check_build_runs(device, card_line):
+    """K12 on the benchmark's hits, the 65,536-face cylinder at 32 x 512^2
+    ([32, 1024, 2048]): the forward pack's runs (tiles over blocks, the
+    hits as K4 writes them) and the gradient pack's (blocks over tiles,
+    the transposed view of the dilated hits, read in place), each under
+    the pack's budget and under one that truncates (half the first
+    image's live visits): starts, counts, ids and dropped ==
+    build_runs_plain's bit for bit.  Then, at the pack's budget, profiler
+    device ms of the kernel's two launches and of the whole call (the
+    cumsum and the zero-fill too) and CUDA-event ms of the call, beside
+    its bound (runs_work at 3.35 TB/s) and the plain version's
+    CUDA-event ms."""
+    from dirt_tpu_torch.ops import forward_blocks as fb
+    tables = hit_tables(bench_scene(32, 512, 8192, device))
+    parts = []
+    for dilate, pack in ((0, "forward"), (1, "gradient")):
+        hit = fb.hit_blocks(*tables[dilate])
+        if dilate:
+            hit = hit.transpose(1, 2)
+        full = fb.slots_per_image(*hit.shape[1:])
+        cut = max(1, int(hit[0].sum()) // 2)
+        for budget in (full, cut):
+            got = fb.build_runs(hit, budget)
+            want = fb.build_runs_plain(hit, budget)
+            torch.cuda.synchronize()
+            same_runs(f"{pack} runs {tuple(hit.shape)} at budget {budget}",
+                      got, want)
+        dropped = int(want[3].sum())     # at the truncating budget
+        if dropped <= 0:
+            fail(f"{pack} runs: the budget {cut} truncated nothing")
+        run = lambda: fb.build_runs(hit, full)
+        nbytes, _ = runs_work(hit, full)
+        call_ms = device_profile(run, PROFILE_STEPS)[0]
+        parts.append(
+            f"{pack} {tuple(hit.shape)} strides {hit.stride()}: kernel "
+            f"{device_time(run, 'build_runs'):.4f} ms device (2 launches), "
+            f"the call " + ("not measured" if call_ms is None
+                            else f"{call_ms:.4f} ms device")
+            + f", {time_ms(run, STEPS):.4f} ms CUDA events; plain "
+            f"{time_ms(lambda: fb.build_runs_plain(hit, full), 5):.4f} ms; "
+            f"bound {bound(nbytes, 0)[0]:.4f} ms (bytes: {nbytes}); == plain "
+            f"at budgets {full} and {cut} ({dropped} dropped)")
+    phase("timing", "K12 build_runs at 32x512^2x65536f: " + "; ".join(parts)
+          + f" on {card_line}")
+
+
 def check_resident_walk(scenes):
     """K5 on the run walk: on each of `scenes` ({tag: scene}) and on the
     first with every count zeroed (every group empty), K5's state == its
@@ -1400,6 +1485,7 @@ def grad_backend(name):
 # through its module's namespace, so `recording` can stand in for it.
 WRAPPERS = {
     "hit_plane": ("forward_blocks", "hit_blocks", "hit_blocks_plain"),
+    "build_runs": ("forward_blocks", "build_runs", "build_runs_plain"),
     "raster_sweep": ("forward_blocks", "raster_sweep", "raster_sweep_plain"),
     "slot_sweep": ("forward_blocks", "slot_sweep", "slot_sweep_plain"),
     "resident_sweep": ("forward_blocks", "resident_sweep",
@@ -1415,8 +1501,8 @@ WRAPPERS = {
                       "pallas_raster_plain"),
     "mxu_grad": ("grad_mxu", "mxu_grad", "mxu_grad_plain"),
 }
-BITWISE = ("hit_plane", "raster_sweep", "slot_sweep", "resident_sweep",
-           "dense_sweep", "grad_prepass", "pallas_raster")
+BITWISE = ("hit_plane", "build_runs", "raster_sweep", "slot_sweep",
+           "resident_sweep", "dense_sweep", "grad_prepass", "pallas_raster")
 # The launch shape of every K3 / K6 call the paths make (check_recorded):
 # {(kernel, parts, channels, chunk, pix): grad_blocks.ReduceShape}.
 REDUCE_LAUNCHES = {}
@@ -1460,8 +1546,8 @@ def recording():
 
 def check_recorded(tag, path, calls, plain_s=None):
     """Holds each recorded kernel call against its plain version on the
-    same arguments: K4, K1, K5b, K5, K7, K2 and K8 bitwise, K3, K6, K9
-    and K10 within ROW_TOL;
+    same arguments: K4, K12, K1, K5b, K5, K7, K2 and K8 bitwise, K3, K6,
+    K9 and K10 within ROW_TOL;
     fails if a kernel of `path` has no recorded call.  Returns {kernel:
     [shape of each call's first result]}; adds each plain version's
     seconds to plain_s[kernel] where plain_s is given."""
@@ -2941,6 +3027,7 @@ def time_ms(fn, reps):
 # reductions' among them.
 DEVICE_KERNELS = {
     "hit_plane": "hit_block_kernel", "raster_sweep": "raster_sweep_kernel",
+    "build_runs": "build_runs_kernel",
     "slot_sweep": "slot_sweep_kernel",
     "resident_sweep": "resident_sweep_kernel",
     "dense_sweep": "dense_sweep_kernel",
@@ -3312,6 +3399,7 @@ def main():
     time_sweeps(sweep_scenes(scene, zoom_scene, large_scene, scene_1536),
                 card_line)
     time_hit_cells(device, card_line)
+    check_build_runs(device, card_line)
     time_accum(device, card_line)
     for name, ms in steps.items():
         phase("timing", f"{name} step fwd+bwd {sizes[name]}: median "

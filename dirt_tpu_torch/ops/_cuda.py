@@ -33,7 +33,8 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = ("raster_sweep.cu", "hit_plane.cu", "grad_prepass.cu",
            "grad_reduce.cu", "dense_sweep.cu", "dense_grad.cu",
            "pallas_raster.cu", "mxu_grad.cu", "resident_sweep.cu",
-           "slot_sweep.cu", "slot_grad.cu", "scalar_accum.cu")
+           "slot_sweep.cu", "slot_grad.cu", "scalar_accum.cu",
+           "build_runs.cu")
 HEADERS = ("sweep_math.cuh", "grad_math.cuh", "slots.cuh", "async_copy.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
@@ -43,6 +44,7 @@ KERNELS = {}
 
 ptr = ctypes.c_void_p
 i32 = ctypes.c_int
+i64 = ctypes.c_longlong
 f32 = ctypes.c_float
 
 # Colour channels a pass of a gradient kernel can take (K3, K6, K9): the
@@ -111,7 +113,8 @@ class Kernel:
         self.name = name
         self.symbol = symbol
         self.argtypes = argtypes
-        self.replaces = replaces      # "file:line" of each TPU kernel def
+        self.replaces = replaces      # "file:line" of each TPU kernel def,
+        # or None for a kernel that replaces none (its source says why)
         self.source = source          # its file under csrc/
         self.launches = 0
         KERNELS[name] = self

@@ -19,7 +19,9 @@ The schedule is the JAX package's fused-CSR one:
     CPU runs the plain [B, T, F] plane and its `any`, hit_blocks_plain);
   * build_runs lays the hits out as CSR runs: per tile, the live block
     ids in ascending order, under a static slot budget whose overflow is
-    counted in RasterAux.dropped;
+    counted in RasterAux.dropped (kernel K12 on CUDA: a count, the
+    cumsum of the counts, and the ids stored from the starts; the CPU
+    runs the plain argsort and scatter, build_runs_plain);
   * the sweep (raster_sweep, kernel K1 on CUDA) walks each tile's run and
     keeps the lexicographic (depth, original index) winner per pixel;
   * forward_dense.finalize does the one division and the aux assembly.
@@ -56,7 +58,7 @@ compare with it bitwise.
 Under a torch.profiler session each stage records a span
 (utils/profiling): dirt.forward.table (face table, Morton sort),
 dirt.forward.hits (K4; counter forward.hit_window, the windows' tiles),
-dirt.forward.runs (the schedule; counters forward.visits and
+dirt.forward.runs (the schedule, K12; counters forward.visits and
 forward.dropped), dirt.forward.sweep and dirt.forward.finalize.
 """
 
@@ -120,17 +122,28 @@ def spatial_order(face_data, bbox_cols, tile_h, tile_w):
     return torch.argsort(key, dim=-1, stable=True).to(torch.int32)
 
 
-def build_runs(hit, num_slots):
+def _run_bounds(n, num_slots):
+    """(starts, counts, dropped) of runs of n [B, R] live items, per
+    image, under a static budget of `num_slots`: the exclusive prefix of
+    n and the runs' lengths, both clamped to the budget, and the items
+    past it."""
+    total = n.cumsum(dim=-1, dtype=torch.int32)
+    starts = (total - n).clamp(max=num_slots)
+    counts = total.clamp(max=num_slots) - starts
+    dropped = (n.sum(dim=-1, dtype=torch.int32) - num_slots).clamp(min=0)
+    return starts, counts, dropped
+
+
+def build_runs_plain(hit, num_slots):
     """CSR schedule from the [B, R, I] bool hit matrix: (starts [B, R],
     counts [B, R], item_ids [B, S], dropped [B]) int32, per image.  Run
     r's live items (ascending) occupy item_ids[starts[r]:starts[r] +
     counts[r]]; truncation by the static budget clamps the last runs and
-    is counted in `dropped`."""
+    is counted in `dropped`; the slots past the image's live items are
+    zero."""
     batch, num_runs, num_items = hit.shape
     n = hit.sum(dim=-1, dtype=torch.int32)                   # [B, R]
-    total = n.cumsum(dim=-1, dtype=torch.int32)
-    starts = (total - n).clamp(max=num_slots)
-    counts = total.clamp(max=num_slots) - starts
+    starts, counts, dropped = _run_bounds(n, num_slots)
     j = torch.arange(num_items, dtype=torch.int32, device=hit.device)
     order = torch.argsort((~hit).to(torch.uint8), dim=-1, stable=True)
     pos = torch.where(j < n[..., None], starts[..., None] + j, num_slots)
@@ -138,8 +151,64 @@ def build_runs(hit, num_slots):
     item_ids = torch.zeros(batch, num_slots + 1, dtype=torch.int32,
                            device=hit.device)
     item_ids.scatter_(1, pos, order.reshape(batch, -1).to(torch.int32))
-    dropped = (n.sum(dim=-1, dtype=torch.int32) - num_slots).clamp(min=0)
     return starts, counts, item_ids[:, :num_slots].contiguous(), dropped
+
+
+# K12 (csrc/build_runs.cu): counts each run's live items, then stores
+# them from the starts the cumsum gives; a launch each (BUILD_RUNS.launches
+# counts two a call).
+BUILD_RUNS = _cuda.Kernel(
+    "build_runs", "dirt_build_runs",
+    [_cuda.ptr] * 5 + [_cuda.i32] * 3 + [_cuda.i64] * 3 + [_cuda.i32] * 4
+    + [_cuda.ptr],
+    replaces=None, source="build_runs.cu")
+# The bytes a K12 lane loads at once where whole words line up.
+RUNS_WORD = 4
+
+
+def runs_layout(hit):
+    """K12's walk of the [B, R, I] view `hit`, from its strides: (lanes on
+    items, width).  The lanes read along the axis of the smaller stride,
+    the items (the forward's rows) or the runs (the gradient's transposed
+    view); RUNS_WORD bytes a lane where that axis is contiguous, its
+    length, the other strides and the address are multiples of
+    RUNS_WORD, else 1."""
+    _, num_runs, num_items = hit.shape
+    sb, sr, si = hit.stride()
+    on_items = si <= sr
+    along, across, length = ((si, sr, num_items) if on_items
+                             else (sr, si, num_runs))
+    whole = (along == 1 and across % RUNS_WORD == 0 and sb % RUNS_WORD == 0
+             and length % RUNS_WORD == 0
+             and hit.data_ptr() % RUNS_WORD == 0)
+    return on_items, RUNS_WORD if whole else 1
+
+
+def build_runs(hit, num_slots):
+    """K12 wrapper: build_runs_plain's schedule, bit for bit, by the CUDA
+    kernel for CUDA tensors and by the plain version for CPU tensors.
+    `hit` is any strided [B, R, I] bool view (the gradient pack's
+    transposed hits are read in place, runs_layout)."""
+    if hit.dtype != torch.bool or hit.dim() != 3:
+        raise ValueError(f"build_runs takes [B, R, I] bool hits, got "
+                         f"{hit.dtype} of shape {tuple(hit.shape)}")
+    if not _cuda.on_cuda(hit):
+        return build_runs_plain(hit, num_slots)
+    batch, num_runs, num_items = hit.shape
+    n = torch.empty(batch, num_runs, dtype=torch.int32, device=hit.device)
+    item_ids = torch.zeros(batch, num_slots, dtype=torch.int32,
+                           device=hit.device)
+    shape = (batch, num_runs, num_items, *hit.stride(), num_slots,
+             *runs_layout(hit))
+    BUILD_RUNS(hit.data_ptr(), _cuda.check("n", n, torch.int32), None, None,
+               _cuda.check("item_ids", item_ids, torch.int32), *shape, 0,
+               _cuda.stream())
+    starts, counts, dropped = _run_bounds(n, num_slots)
+    BUILD_RUNS(hit.data_ptr(), n.data_ptr(),
+               _cuda.check("starts", starts, torch.int32, n.shape),
+               _cuda.check("counts", counts, torch.int32, n.shape),
+               item_ids.data_ptr(), *shape, 1, _cuda.stream())
+    return starts, counts, item_ids, dropped
 
 
 def build_slots(hit, num_slots):

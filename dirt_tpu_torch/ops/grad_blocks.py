@@ -5,8 +5,9 @@ the backward (PyTorch port of dirt_tpu/ops/grad_blocks.py).
     per-pixel planes in tile-major layout;
   * the gradient face table (ops/grad_tables.py) is Morton-sorted and
     binned with the forward's hit test (kernel K4) at a one-pixel dilation,
-    and build_runs lays the TRANSPOSED hits out as CSR runs: per face
-    block, the tiles its faces can reach;
+    and build_runs (K12 on CUDA, which reads the transposed view in
+    place) lays the TRANSPOSED hits out as CSR runs: per face block, the
+    tiles its faces can reach;
   * grad_reduce (kernel K3 on CUDA) accumulates each face's masked sums
     (grad_dense's reductions) over its block's tiles, in tile order, into
     one deterministic row per face -- no atomics;

@@ -5,8 +5,10 @@ elsewhere.  On the card, run them without the JAX test configuration:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
-The checks are chip_smoke.py's, at small shapes: the hit plane, the
-sweeps' states (the slot sweep K5b's and the resident sweep K5's also
+The checks are chip_smoke.py's, at small shapes: the hit plane, the CSR
+runs (K12; tests/test_torch_build_runs.py holds it over densities,
+orientations and budgets), the sweeps' states (the slot sweep K5b's and
+the resident sweep K5's also
 equal to K1's; K1 and K5b also on runs of 0, 1, 121 and more visits than
 their visit list, on exact depth ties, each equal to itself in two
 calls; K8 and K7 on lists of 0, 1, 301 and 3,728 faces, K5 with every
@@ -54,6 +56,7 @@ def test_kernels_match_plain(device, scene):
     }[scene]
     errors, _, _ = chip_smoke.compare_kernels(scene, make())
     assert errors["hit_plane"] == errors["raster_sweep"] == 0.0
+    assert errors["build_runs"] == 0.0
     assert errors["dense_sweep"] == errors["grad_prepass"] == 0.0
     assert errors["pallas_raster"] == 0.0
     assert errors["slot_sweep"] == errors["resident_sweep"] == 0.0
