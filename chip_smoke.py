@@ -552,8 +552,8 @@ def kernel_inputs(scene):
     sweep_args = (table, starts, counts, block_ids, channels, height, width,
                   tiles_x, tiles_y * tiles_x, th, tw)
     state_bytes = batch * tiles_y * tiles_x * (channels + 9) * pix * 4
-    stable, slot_tile, slot_block, slot_dma, _ = fb.pack_slots(
-        clip, colors, faces, height, width, th, tw, chunk)
+    stable, slot_tile, slot_block, slot_dma, _ = fb.pack(
+        clip, colors, faces, height, width, th, tw, chunk, slots=True)
     slot_args = (stable, slot_tile, slot_block, slot_dma, batch, channels,
                  height, width, tiles_x, tiles_y * tiles_x, th, tw)
     # K5 runs where the auto budget (a block's shared memory) admits the
@@ -585,8 +585,8 @@ def kernel_inputs(scene):
         clip, faces, height, width, gh, gw, gchunk)
     reduce_args = (gtable, planes, gstarts, gcounts, tile_ids, channels,
                    "all")
-    _, slot_run, slot_item, gslot_dma, _ = gb.pack_slots(
-        clip, faces, height, width, gh, gw, gchunk)
+    _, slot_run, slot_item, gslot_dma, _ = gb.pack(
+        clip, faces, height, width, gh, gw, gchunk, slots=True)
     slot_reduce_args = (gtable, planes, slot_run, slot_item, gslot_dma,
                         channels, "all")
     d_out = grad_dense.d_out_for("all", channels)
@@ -1371,15 +1371,15 @@ def check_truncated(tag, scene):
     need = counts.clamp(min=1).reshape(batch, -1).sum(-1)
     budget = int(need.min()) // 2
     with slot_budget(budget):
-        table, slot_tile, slot_block, slot_dma, dropped = fb.pack_slots(
-            clip, colors, faces, height, width, th, tw, chunk)
+        table, slot_tile, slot_block, slot_dma, dropped = fb.pack(
+            clip, colors, faces, height, width, th, tw, chunk, slots=True)
     grad_schedule = (clip, faces, height, width, gb.TILE_H, gb.TILE_W,
                      gb.CHUNK)
     gcounts = gb.pack(*grad_schedule)[2]
     with slot_budget(int(gcounts.clamp(min=1).reshape(batch, -1).sum(-1)
                          .min()) // 2):
-        gtable, slot_run, slot_item, gslot_dma, _ = gb.pack_slots(
-            *grad_schedule)
+        gtable, slot_run, slot_item, gslot_dma, _ = gb.pack(
+            *grad_schedule, slots=True)
     if not torch.equal(dropped, (need - budget).clamp(min=0).to(
             dropped.dtype)):
         fail(f"{tag}: slot budget {budget}: dropped {dropped.tolist()}, the "
@@ -1435,8 +1435,8 @@ def _environ(name, value):
 
 @contextlib.contextmanager
 def _constants(module, **values):
-    """Within the block, the constants of dirt_tpu_torch.ops.`module` (set
-    from the environment at import) take `values`."""
+    """Within the block, the constants of dirt_tpu_torch.ops.`module` take
+    `values`."""
     mod = _ops_module(module)
     saved = {name: getattr(mod, name) for name in values}
     for name, value in values.items():
@@ -3126,8 +3126,8 @@ def time_sweeps(scenes, card_line):
         table, starts, counts, block_ids, _ = fb.pack(
             clip, colors, faces, height, width, th, tw, chunk)
         csr = (table, starts, counts, block_ids, *geometry)
-        slots = fb.pack_slots(clip, colors, faces, height, width, th, tw,
-                              chunk)[:4]
+        slots = fb.pack(clip, colors, faces, height, width, th, tw,
+                        chunk, slots=True)[:4]
         dth, dtw = forward_dense.tile_shape(height, width)
         dtiles_x = _cdiv(width, dtw)
         dnum_tiles = _cdiv(height, dth) * dtiles_x

@@ -30,6 +30,8 @@ from typing import NamedTuple
 
 import torch
 
+from . import dispatch
+
 IMPLEMENTATIONS = ("xla", "blocks", "dense", "mxu")
 # Opt-in diagonal dilation: after the reference's two axial attempts, also
 # try the four diagonal neighbours (the reference documents them as an
@@ -307,17 +309,17 @@ def default_implementation(device):
 
 
 def resolve_implementation(implementation, device):
-    """None -> DIRT_TPU_TORCH_GRAD_BACKEND (dirt_tpu's
+    """None -> dispatch.grad_env() (DIRT_TPU_TORCH_GRAD_BACKEND, dirt_tpu's
     DIRT_TPU_GRAD_BACKEND), default "auto"; "auto" -> the device's default;
-    "pallas" -> "blocks", the kernel dirt_tpu's automatic Pallas choice
-    picks at every mesh size.  Unknown names raise."""
+    "pallas" -> dispatch.GRAD_FOR_BACKEND's pairing, "blocks", the kernel
+    dirt_tpu's automatic Pallas choice picks at every mesh size.  Unknown
+    names raise."""
     if implementation is None:
-        implementation = os.environ.get("DIRT_TPU_TORCH_GRAD_BACKEND",
-                                        "auto")
+        implementation = dispatch.grad_env()
     if implementation == "auto":
         implementation = default_implementation(device)
     if implementation == "pallas":
-        implementation = "blocks"
+        implementation = dispatch.GRAD_FOR_BACKEND[implementation]
     if implementation not in IMPLEMENTATIONS:
         raise ValueError(f"unknown gradient implementation "
                          f"{implementation!r}; expected one of "

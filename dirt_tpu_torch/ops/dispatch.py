@@ -33,6 +33,7 @@ DIRT_TPU_GRAD_BACKEND overrides its automatic choice: it is how a
 training step reaches the "mxu" gradient.
 """
 
+import contextlib
 import os
 
 import torch
@@ -56,11 +57,31 @@ def default_backend(device, num_faces=None):
     return "blocks"
 
 
+def grad_env():
+    """The gradient that DIRT_TPU_TORCH_GRAD_BACKEND names, default "auto"
+    (the one place the port reads it)."""
+    return os.environ.get("DIRT_TPU_TORCH_GRAD_BACKEND", "auto")
+
+
+@contextlib.contextmanager
+def grad_env_set(name):
+    """Within the block, DIRT_TPU_TORCH_GRAD_BACKEND is `name`."""
+    saved = os.environ.get("DIRT_TPU_TORCH_GRAD_BACKEND")
+    os.environ["DIRT_TPU_TORCH_GRAD_BACKEND"] = name
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["DIRT_TPU_TORCH_GRAD_BACKEND"]
+        else:
+            os.environ["DIRT_TPU_TORCH_GRAD_BACKEND"] = saved
+
+
 def grad_for_backend(backend):
     """The gradient implementation a backend's autograd backward runs:
-    DIRT_TPU_TORCH_GRAD_BACKEND when set and not "auto", else the
-    backend's pairing (GRAD_FOR_BACKEND)."""
-    env = os.environ.get("DIRT_TPU_TORCH_GRAD_BACKEND", "auto")
+    grad_env() when not "auto", else the backend's pairing
+    (GRAD_FOR_BACKEND)."""
+    env = grad_env()
     return GRAD_FOR_BACKEND[backend] if env == "auto" else env
 
 

@@ -37,17 +37,17 @@ Two further schedules compute the same state bit for bit:
     K5b on CUDA) walks each tile's slots.  Tiles whose slots the static
     budget cut are background.
 
-Switches, read at import (tests set the module constants):
+Switches, module constants that tests set (the schedules they choose
+compute the same state bit for bit):
 
-  * FUSED (DIRT_TPU_TORCH_BLOCKS_FUSED, default on): the CSR runs; "0"
-    selects the slot schedule;
-  * RESIDENT_MB (DIRT_TPU_TORCH_BLOCKS_RESIDENT_MB, default -1 = never):
-    the resident-table budget in MB, 0 = auto = the device's opt-in
-    shared memory per block; a positive value is capped by that limit;
-  * SPATIAL (DIRT_TPU_TORCH_SPATIAL_SORT, default on): the Morton sort of
-    the table rows, here and in the gradient's pack (ops/grad_blocks.py);
-  * EDGE_CULL (DIRT_TPU_TORCH_EDGE_CULL, default on): the half-plane
-    refinement of every block hit test.
+  * FUSED (default on): the CSR runs; off selects the slot schedule;
+  * RESIDENT_MB (default -1 = never): the resident-table budget in MB,
+    0 = auto = the device's opt-in shared memory per block; a positive
+    value is capped by that limit;
+  * SPATIAL (default on): the Morton sort of the table rows, in both
+    passes' schedules (schedule);
+  * EDGE_CULL (default on): the half-plane refinement of every block hit
+    test (hit_matrix).
 
 Tile shape and block size are parameters.  The defaults are this port's
 GPU shape for every schedule (16x16-pixel tiles, one thread per pixel;
@@ -55,11 +55,13 @@ GPU shape for every schedule (16x16-pixel tiles, one thread per pixel;
 (4x128 tiles and 64-face blocks fused, 32x128 and 128 on slots) to
 compare with it bitwise.
 
-Under a torch.profiler session each stage records a span
-(utils/profiling): dirt.forward.table (face table, Morton sort),
-dirt.forward.hits (K4; counter forward.hit_window, the windows' tiles),
-dirt.forward.runs (the schedule, K12; counters forward.visits and
-forward.dropped), dirt.forward.sweep and dirt.forward.finalize.
+Both passes build their schedule in one function, schedule, which takes
+the pass (Pass: FORWARD here, grad_blocks.GRADIENT) as data.  Under a
+torch.profiler session each stage records a span (utils/profiling):
+dirt.forward.table (face table, Morton sort), dirt.forward.hits (K4;
+counter forward.hit_window, the windows' tiles), dirt.forward.runs (the
+schedule, K12; counters forward.visits and forward.dropped),
+dirt.forward.sweep and dirt.forward.finalize.
 """
 
 import collections
@@ -76,10 +78,10 @@ TILE_H = 16
 TILE_W = 16
 CHUNK = 32
 _BBOX = (20, 21, 22, 23)
-FUSED = os.environ.get("DIRT_TPU_TORCH_BLOCKS_FUSED", "1") != "0"
-RESIDENT_MB = float(os.environ.get("DIRT_TPU_TORCH_BLOCKS_RESIDENT_MB", "-1"))
-SPATIAL = os.environ.get("DIRT_TPU_TORCH_SPATIAL_SORT", "1") != "0"
-EDGE_CULL = os.environ.get("DIRT_TPU_TORCH_EDGE_CULL", "1") != "0"
+FUSED = True
+RESIDENT_MB = -1.0
+SPATIAL = True
+EDGE_CULL = True
 
 
 def _cdiv(a, b):
@@ -773,72 +775,77 @@ def slot_sweep(face_table, slot_tile, slot_block, slot_dma, batch, channels,
 # Schedules
 # --------------------------------------------------------------------------
 
-def _table_and_hits(vertices, vertex_colors, faces, height, width, tile_h,
-                    tile_w, chunk):
-    """The face table [B, NB*chunk, D] (Morton-sorted when SPATIAL) and
-    its [B, T, NB] block hits."""
-    num_blocks = _cdiv(faces.shape[1], chunk)
+# A pass's schedule as data: its spans' and counters' prefix; the face
+# table's bbox columns and first edge column; K4's dilation; whether the
+# runs are the face blocks (the gradient: the transposed hits, items are
+# tiles) or the tiles; the counter of the CSR runs' visits, if any.
+Pass = collections.namedtuple("Pass", "name bbox edge dilate by_block visits")
+FORWARD = Pass("forward", _BBOX, 0, 0, False, "forward.visits")
+
+
+def schedule(pass_, vertices, num_faces, table, height, width, tile_h, tile_w,
+             chunk, slots):
+    """A pass's schedule for a batch, in spans dirt.<name>.table (`table`
+    (pad_rows) -> [B, NB*chunk, D], Morton-sorted when SPATIAL),
+    dirt.<name>.hits (K4; counter <name>.hit_window) and dirt.<name>.runs
+    (counter <name>.dropped, and pass_.visits): returns (face_table [B*NB,
+    chunk, D], the runs folded over the batch, dropped [B], order [B,
+    NB*chunk] the table row each sorted row came from).
+
+    The [B, R, I] hits are [B, T, NB], or their transpose where
+    pass_.by_block.  The runs are CSR (starts + S*b, counts, ids + I*b),
+    or with `slots` the slot schedule (slot_run + R*b, slot_item per
+    image, slot_dma + I*b, dirt_tpu's layout)."""
+    batch = vertices.shape[0]
+    num_blocks = _cdiv(num_faces, chunk)
     tiles_y, tiles_x = _cdiv(height, tile_h), _cdiv(width, tile_w)
-    with profiling.span("dirt.forward.table", vertices):
-        face_data = forward_pallas._face_table(
-            vertices, vertex_colors, faces, height, width,
-            num_blocks * chunk - faces.shape[1])
+    with profiling.span(f"dirt.{pass_.name}.table", vertices):
+        face_data = table(num_blocks * chunk - num_faces)
         if SPATIAL:
-            order = spatial_order(face_data, _BBOX, tile_h, tile_w)
+            order = spatial_order(face_data, pass_.bbox, tile_h, tile_w)
             face_data = torch.take_along_dim(
                 face_data, order[..., None].long(), dim=1).contiguous()
-    with profiling.span("dirt.forward.hits", face_data):
-        hit = hit_matrix(face_data, _BBOX, num_blocks, chunk, tiles_y,
-                         tiles_x, tile_h, tile_w, edge_cols=0, height=height,
-                         width=width, counter="forward.hit_window")
-    return face_data, hit
+        else:
+            order = torch.arange(num_blocks * chunk, dtype=torch.int32,
+                                 device=vertices.device).expand(batch, -1)
+    with profiling.span(f"dirt.{pass_.name}.hits", face_data):
+        hit = hit_matrix(face_data, pass_.bbox, num_blocks, chunk, tiles_y,
+                         tiles_x, tile_h, tile_w, edge_cols=pass_.edge,
+                         height=height, width=width, dilate=pass_.dilate,
+                         counter=f"{pass_.name}.hit_window")
+    view = hit.transpose(1, 2) if pass_.by_block else hit
+    _, num_runs, num_items = view.shape
+    num_slots = slots_per_image(num_runs, num_items)
+    with profiling.span(f"dirt.{pass_.name}.runs", hit):
+        if slots:
+            *runs, dropped = build_slots(view, num_slots)
+            offsets = (num_runs, 0, num_items)    # slot_run, _item, _dma
+        else:
+            *runs, dropped = build_runs(view, num_slots)
+            if pass_.visits:
+                profiling.count(pass_.visits, runs[1])
+            offsets = (num_slots, 0, num_items)   # starts, counts, ids
+        profiling.count(f"{pass_.name}.dropped", dropped)
+        boff = torch.arange(batch, dtype=torch.int32,
+                            device=vertices.device)[:, None]
+        runs = tuple((t + n * boff if n else t).reshape(-1)
+                     for t, n in zip(runs, offsets))
+        return (face_data.reshape(batch * num_blocks, chunk, -1), runs,
+                dropped, order)
 
 
 def pack(vertices, vertex_colors, faces, height, width, tile_h, tile_w,
-         chunk):
-    """The fused schedule for a batch: (face_table [B*NB, chunk, D],
-    starts [B*T], counts [B*T], block_ids [B*S], dropped [B]), with the
-    CSR ids folded over the batch.  Counts the live visits
-    (`forward.visits`) and `forward.dropped` in its span."""
-    face_data, hit = _table_and_hits(vertices, vertex_colors, faces, height,
-                                     width, tile_h, tile_w, chunk)
-    batch, num_tiles, num_blocks = hit.shape
-    num_slots = slots_per_image(num_tiles, num_blocks)
-    with profiling.span("dirt.forward.runs", hit):
-        starts, counts, block_ids, dropped = build_runs(hit, num_slots)
-        profiling.count("forward.visits", counts)
-        profiling.count("forward.dropped", dropped)
-        boff = torch.arange(batch, dtype=torch.int32,
-                            device=faces.device)[:, None]
-        return (face_data.reshape(batch * num_blocks, chunk, -1),
-                (starts + num_slots * boff).reshape(-1),
-                counts.reshape(-1),
-                (block_ids + num_blocks * boff).reshape(-1),
-                dropped)
-
-
-def pack_slots(vertices, vertex_colors, faces, height, width, tile_h, tile_w,
-               chunk):
-    """The slot schedule for a batch: (face_table [B*NB, chunk, D],
-    slot_tile [B*S], slot_block [B*S], slot_dma [B*S], dropped [B]);
-    slot_tile and slot_dma are folded over the batch, slot_block stays
-    per image (dirt_tpu's layout).  Counts `forward.dropped` in its
-    span."""
-    face_data, hit = _table_and_hits(vertices, vertex_colors, faces, height,
-                                     width, tile_h, tile_w, chunk)
-    batch, num_tiles, num_blocks = hit.shape
-    num_slots = slots_per_image(num_tiles, num_blocks)
-    with profiling.span("dirt.forward.runs", hit):
-        slot_tile, slot_block, slot_dma, dropped = build_slots(hit,
-                                                               num_slots)
-        profiling.count("forward.dropped", dropped)
-        boff = torch.arange(batch, dtype=torch.int32,
-                            device=faces.device)[:, None]
-        return (face_data.reshape(batch * num_blocks, chunk, -1),
-                (slot_tile + num_tiles * boff).reshape(-1),
-                slot_block.reshape(-1),
-                (slot_dma + num_blocks * boff).reshape(-1),
-                dropped)
+         chunk, slots=False):
+    """The forward schedule for a batch (schedule): (face_table [B*NB,
+    chunk, D], starts [B*T], counts [B*T], block_ids [B*S], dropped [B]),
+    or with `slots` (face_table, slot_tile [B*S], slot_block [B*S],
+    slot_dma [B*S], dropped [B])."""
+    table = functools.partial(forward_pallas._face_table, vertices,
+                              vertex_colors, faces, height, width)
+    face_table, runs, dropped, _ = schedule(
+        FORWARD, vertices, faces.shape[1], table, height, width, tile_h,
+        tile_w, chunk, slots)
+    return (face_table, *runs, dropped)
 
 
 def rasterise_batch(background, vertices, vertex_colors, faces,
@@ -858,23 +865,18 @@ def rasterise_batch(background, vertices, vertex_colors, faces,
                                          faces)
     tiles_y, tiles_x = _cdiv(height, tile_h), _cdiv(width, tile_w)
     num_tiles = tiles_y * tiles_x
-    schedule = (tiles_x, num_tiles, tile_h, tile_w)
+    face_table, *runs, dropped = pack(vertices, vertex_colors, faces, height,
+                                      width, tile_h, tile_w, chunk,
+                                      slots=not FUSED)
+    grid = (tiles_x, num_tiles, tile_h, tile_w)
     if FUSED:
-        face_table, starts, counts, block_ids, dropped = pack(
-            vertices, vertex_colors, faces, height, width, tile_h, tile_w,
-            chunk)
         sweep = (resident_sweep if takes_resident(face_table, batch)
                  else raster_sweep)
-        with profiling.span("dirt.forward.sweep", face_table):
-            state = sweep(face_table, starts, counts, block_ids, channels,
-                          height, width, *schedule)
+        args = (channels, height, width, *grid)
     else:
-        face_table, slot_tile, slot_block, slot_dma, dropped = pack_slots(
-            vertices, vertex_colors, faces, height, width, tile_h, tile_w,
-            chunk)
-        with profiling.span("dirt.forward.sweep", face_table):
-            state = slot_sweep(face_table, slot_tile, slot_block, slot_dma,
-                               batch, channels, height, width, *schedule)
+        sweep, args = slot_sweep, (batch, channels, height, width, *grid)
+    with profiling.span("dirt.forward.sweep", face_table):
+        state = sweep(face_table, *runs, *args)
     with profiling.span("dirt.forward.finalize", state):
         state = state.reshape(batch, num_tiles, channels + 9,
                               tile_h * tile_w)

@@ -41,10 +41,35 @@ def _pad_row(width_d, device=None):
     return row
 
 
+def pixel_bbox(corners, valid, height, width, widen=0):
+    """The conservative pixel bbox (r0, r1, c0, c1), int32 [B, F], of the
+    faces' clip-space `corners` [B, F, 3, 4]: +/- 1 pixel of rounding
+    slack and `widen` pixels more, clamped to the image.  Faces with any
+    w <= 0 may wrap through infinity, so they get the full screen; faces
+    that are not `valid` get the empty bbox (_BIG, -1, _BIG, -1)."""
+    w = corners[..., 3]
+    safe_w = torch.where(w > 0, w, 1.0)
+    px = (corners[..., 0] / safe_w + 1.0) * (width / 2.0)
+    py = (1.0 - corners[..., 1] / safe_w) * (height / 2.0)
+    unbounded = (w <= 0).any(dim=-1)
+    lo = lambda p: torch.floor(p.amin(dim=-1) - 0.5).to(torch.int32) - 1
+    hi = lambda p: torch.ceil(p.amax(dim=-1) - 0.5).to(torch.int32) + 1
+    col0, col1, row0, row1 = lo(px), hi(px), lo(py), hi(py)
+    if widen:
+        col0, col1 = col0 - widen, col1 + widen
+        row0, row1 = row0 - widen, row1 + widen
+    col0 = torch.where(unbounded, 0, col0.clamp(0, width - 1))
+    col1 = torch.where(unbounded, width - 1, col1.clamp(0, width - 1))
+    row0 = torch.where(unbounded, 0, row0.clamp(0, height - 1))
+    row1 = torch.where(unbounded, height - 1, row1.clamp(0, height - 1))
+    return (torch.where(valid, row0, _BIG), torch.where(valid, row1, -1),
+            torch.where(valid, col0, _BIG), torch.where(valid, col1, -1))
+
+
 def _face_table(vertices, vertex_colors, faces, height, width, pad_rows):
     """Per-face raster constants + corner attributes for a batch:
     [B, F + pad_rows, _BASE + 3C] float32, with the conservative pixel bbox
-    in columns 20-23 and padded rows given an empty bbox.
+    (pixel_bbox) in columns 20-23 and padded rows given an empty bbox.
 
     Invalid (degenerate) rows get NaN z/w columns: the block schedule
     sweeps every row of a live block, and a degenerate face's rounded edge
@@ -55,31 +80,9 @@ def _face_table(vertices, vertex_colors, faces, height, width, pad_rows):
     channels = vertex_colors.shape[-1]
     device = vertices.device
     setup = geometry.face_setup(vertices, faces)
-
-    corners = geometry.gather_corners(vertices, faces)    # [B, F, 3, 4]
-    w = corners[..., 3]
-    safe_w = torch.where(w > 0, w, 1.0)
-    px = (corners[..., 0] / safe_w + 1.0) * (width / 2.0)
-    py = (1.0 - corners[..., 1] / safe_w) * (height / 2.0)
-
-    # Conservative pixel bbox (+/- 1 pixel of rounding slack); faces with
-    # any w <= 0 may wrap through infinity, so they get the full screen.
-    unbounded = (w <= 0).any(dim=-1)
-    i32 = lambda a: a.to(torch.int32)
-    col0 = i32(torch.floor(px.amin(dim=-1) - 0.5)) - 1
-    col1 = i32(torch.ceil(px.amax(dim=-1) - 0.5)) + 1
-    row0 = i32(torch.floor(py.amin(dim=-1) - 0.5)) - 1
-    row1 = i32(torch.ceil(py.amax(dim=-1) - 0.5)) + 1
-    col0 = torch.where(unbounded, 0, col0.clamp(0, width - 1))
-    col1 = torch.where(unbounded, width - 1, col1.clamp(0, width - 1))
-    row0 = torch.where(unbounded, 0, row0.clamp(0, height - 1))
-    row1 = torch.where(unbounded, height - 1, row1.clamp(0, height - 1))
-
     valid = setup.valid
-    row0 = torch.where(valid, row0, _BIG)
-    col0 = torch.where(valid, col0, _BIG)
-    row1 = torch.where(valid, row1, -1)
-    col1 = torch.where(valid, col1, -1)
+    row0, row1, col0, col1 = pixel_bbox(
+        geometry.gather_corners(vertices, faces), valid, height, width)
 
     corner_attrs = geometry.gather_corners(vertex_colors.float(), faces)
     keep = valid[..., None]

@@ -13,13 +13,12 @@ the backward (PyTorch port of dirt_tpu/ops/grad_blocks.py).
     one deterministic row per face -- no atomics;
   * grad_dense.scatter_face_grads sums the face rows into vertex rows.
 
-With FUSED off (DIRT_TPU_TORCH_GRAD_BLOCKS_FUSED=0, read at import) the
-transposed hits are laid out as the slot schedule instead
-(forward_blocks.build_slots) and slot_grad_reduce (kernel K6 on CUDA)
-walks each block's slots in K3's order, so its rows equal K3's bit for
-bit; a block whose slots the static budget cut keeps zero rows.  The
-Morton sort follows forward_blocks.SPATIAL (off: table rows are faces in
-order), the half-plane cull forward_blocks.EDGE_CULL.
+With FUSED off (a module constant that tests set) the transposed hits
+are laid out as the slot schedule instead (forward_blocks.build_slots)
+and slot_grad_reduce (kernel K6 on CUDA) walks each block's slots in K3's
+order, so its rows equal K3's bit for bit; a block whose slots the static
+budget cut keeps zero rows.  Both schedules are forward_blocks.schedule's,
+given this pass (GRADIENT) as data.
 
 Tile shape and block size are parameters; the defaults are this port's GPU
 shape (16x16-pixel tiles, 32-face blocks) on both schedules, and the tests
@@ -36,7 +35,7 @@ dirt.backward.reduce (K3 or K6) and dirt.backward.scatter.
 """
 
 import collections
-import os
+import functools
 
 import torch
 
@@ -48,7 +47,7 @@ TILE_H = 16
 TILE_W = 16
 CHUNK = 32
 _BBOX = (0, 1, 2, 3)
-FUSED = os.environ.get("DIRT_TPU_TORCH_GRAD_BLOCKS_FUSED", "1") != "0"
+FUSED = True
 
 GRAD_REDUCE = _cuda.Kernel(
     "grad_reduce", "dirt_grad_reduce",
@@ -246,81 +245,25 @@ def slot_grad_reduce(face_table, planes, slot_run, slot_item, slot_dma,
 # Schedules
 # --------------------------------------------------------------------------
 
-def _table_and_hits(vertices, faces, height, width, tile_h, tile_w, chunk):
-    """The gradient face table [B, NB*chunk, _DF] (Morton-sorted when
-    forward_blocks.SPATIAL), its [B, T, NB] block hits and row_face [B,
-    NB*chunk], the face of each table row."""
-    batch, num_faces = faces.shape[:2]
-    num_blocks = _cdiv(num_faces, chunk)
-    tiles_y, tiles_x = _cdiv(height, tile_h), _cdiv(width, tile_w)
-    with profiling.span("dirt.backward.table", vertices):
-        face_data = grad_tables._grad_face_table(
-            vertices, faces, height, width, num_blocks * chunk - num_faces)
-        if forward_blocks.SPATIAL:
-            order = forward_blocks.spatial_order(face_data, _BBOX, tile_h,
-                                                 tile_w)
-            face_data = torch.take_along_dim(
-                face_data, order[..., None].long(), dim=1).contiguous()
-        else:
-            order = torch.arange(num_blocks * chunk, dtype=torch.int32,
-                                 device=faces.device).expand(batch, -1)
-    # dilate=1: the gradient support is coverage dilated one pixel.
-    with profiling.span("dirt.backward.hits", face_data):
-        hit = forward_blocks.hit_matrix(
-            face_data, _BBOX, num_blocks, chunk, tiles_y, tiles_x, tile_h,
-            tile_w, edge_cols=12, height=height, width=width, dilate=1,
-            counter="backward.hit_window")
-    return face_data, hit, order
+# dilate=1: the gradient support is coverage dilated one pixel.  Runs are
+# face blocks, items tiles; no visits counter.
+GRADIENT = forward_blocks.Pass("backward", _BBOX, 12, 1, True, None)
 
 
-def pack(vertices, faces, height, width, tile_h, tile_w, chunk):
-    """The fused gradient schedule for a batch: (face_table [B*NB, chunk,
-    _DF], starts [B*NB], counts [B*NB], tile_ids [B*S], row_face [B,
-    NB*chunk]), CSR ids folded over the batch; row_face maps table rows to
-    faces.  Counts `backward.dropped` in its span: the dilated hits make
-    this schedule a superset of the forward's, so it can truncate visits
-    where the forward's truncates none."""
-    face_data, hit, order = _table_and_hits(vertices, faces, height, width,
-                                            tile_h, tile_w, chunk)
-    batch, num_tiles, num_blocks = hit.shape
-    num_slots = forward_blocks.slots_per_image(num_blocks, num_tiles)
-    with profiling.span("dirt.backward.runs", hit):
-        # Transposed CSR: runs are blocks, items are tiles.
-        starts, counts, tile_ids, dropped = forward_blocks.build_runs(
-            hit.transpose(1, 2), num_slots)
-        profiling.count("backward.dropped", dropped)
-        boff = torch.arange(batch, dtype=torch.int32,
-                            device=faces.device)[:, None]
-        return (face_data.reshape(batch * num_blocks, chunk,
-                                  grad_tables._DF),
-                (starts + num_slots * boff).reshape(-1),
-                counts.reshape(-1),
-                (tile_ids + num_tiles * boff).reshape(-1),
-                order)
-
-
-def pack_slots(vertices, faces, height, width, tile_h, tile_w, chunk):
-    """The slot gradient schedule for a batch: (face_table [B*NB, chunk,
-    _DF], slot_run [B*S], slot_item [B*S], slot_dma [B*S], row_face [B,
-    NB*chunk]); slot_run and slot_dma are folded over the batch,
-    slot_item stays per image (dirt_tpu's layout).  Counts
-    `backward.dropped` in its span."""
-    face_data, hit, order = _table_and_hits(vertices, faces, height, width,
-                                            tile_h, tile_w, chunk)
-    batch, num_tiles, num_blocks = hit.shape
-    num_slots = forward_blocks.slots_per_image(num_blocks, num_tiles)
-    with profiling.span("dirt.backward.runs", hit):
-        slot_run, slot_item, slot_dma, dropped = forward_blocks.build_slots(
-            hit.transpose(1, 2), num_slots)
-        profiling.count("backward.dropped", dropped)
-        boff = torch.arange(batch, dtype=torch.int32,
-                            device=faces.device)[:, None]
-        return (face_data.reshape(batch * num_blocks, chunk,
-                                  grad_tables._DF),
-                (slot_run + num_blocks * boff).reshape(-1),
-                slot_item.reshape(-1),
-                (slot_dma + num_tiles * boff).reshape(-1),
-                order)
+def pack(vertices, faces, height, width, tile_h, tile_w, chunk, slots=False):
+    """The gradient schedule for a batch (forward_blocks.schedule):
+    (face_table [B*NB, chunk, _DF], starts [B*NB], counts [B*NB], tile_ids
+    [B*S], row_face [B, NB*chunk]), or with `slots` (face_table, slot_run
+    [B*S], slot_item [B*S], slot_dma [B*S], row_face); row_face maps table
+    rows to faces.  The dilated hits make this schedule a superset of the
+    forward's, so it can truncate visits (backward.dropped) where the
+    forward's truncates none."""
+    table = functools.partial(grad_tables._grad_face_table, vertices, faces,
+                              height, width)
+    face_table, runs, _, row_face = forward_blocks.schedule(
+        GRADIENT, vertices, faces.shape[1], table, height, width, tile_h,
+        tile_w, chunk, slots)
+    return (face_table, *runs, row_face)
 
 
 def rasterise_grad_batch(vertices, faces, pixels, grad_pixels, aux,
@@ -345,19 +288,12 @@ def rasterise_grad_batch(vertices, faces, pixels, grad_pixels, aux,
             pixels, grad_pixels, aux, parts, color_cotangent, tile_h,
             tile_w)
 
-    if FUSED:
-        face_table, starts, counts, tile_ids, row_face = pack(
-            vertices, faces, height, width, tile_h, tile_w, chunk)
-        with profiling.span("dirt.backward.reduce", planes):
-            face_grads = grad_reduce(face_table, planes, starts, counts,
-                                     tile_ids, channels, parts)
-    else:
-        face_table, slot_run, slot_item, slot_dma, row_face = pack_slots(
-            vertices, faces, height, width, tile_h, tile_w, chunk)
-        with profiling.span("dirt.backward.reduce", planes):
-            face_grads = slot_grad_reduce(face_table, planes, slot_run,
-                                          slot_item, slot_dma, channels,
-                                          parts)
+    face_table, *runs, row_face = pack(vertices, faces, height, width,
+                                       tile_h, tile_w, chunk,
+                                       slots=not FUSED)
+    reduce = grad_reduce if FUSED else slot_grad_reduce
+    with profiling.span("dirt.backward.reduce", planes):
+        face_grads = reduce(face_table, planes, *runs, channels, parts)
 
     # Rows map 1:1 to faces in table order; padded tail rows reduce to
     # zeros and scatter harmlessly into vertex 0.

@@ -70,22 +70,13 @@ def _pack_grad_bands(vertices, faces, height, width, num_chunks, num_bands):
     to the slots, sorted_orig [B, bands, NC * CHUNK] i32).  Padded list
     entries get face id -3 (never a face, background -1 or a padded pixel
     -2) and original face 0."""
-    del width
     batch, num_faces = faces.shape[:2]
     device = vertices.device
     setup = geometry.face_setup(vertices, faces)
-    corners = geometry.gather_corners(vertices, faces)      # [B, F, 3, 4]
-    w = corners[..., 3]
-    safe_w = torch.where(w > 0, w, 1.0)
-    py = (1.0 - corners[..., 1] / safe_w) * (height / 2.0)
-
-    unbounded = (w <= 0).any(dim=-1)
-    row0 = torch.floor(py.amin(dim=-1) - 0.5).to(torch.int32) - 2
-    row1 = torch.ceil(py.amax(dim=-1) - 0.5).to(torch.int32) + 2
-    row0 = torch.where(unbounded, 0, row0.clamp(0, height - 1))
-    row1 = torch.where(unbounded, height - 1, row1.clamp(0, height - 1))
-    row0 = torch.where(setup.valid, row0, _BIG)
-    row1 = torch.where(setup.valid, row1, -1)
+    # The gradient table's rows: widened one pixel more for dilation.
+    row0, row1, _, _ = forward_pallas.pixel_bbox(
+        geometry.gather_corners(vertices, faces), setup.valid, height, width,
+        widen=1)
 
     max_rows = num_chunks * CHUNK
     pad_rows = max(max_rows, num_faces) - num_faces

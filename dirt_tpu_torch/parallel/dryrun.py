@@ -20,7 +20,7 @@ Scene parameters are replicated, targets batch-sharded (two images a
 rank), as dirt_tpu's dry run lays them out on its mesh.
 """
 
-import os
+import contextlib
 
 import numpy as np
 import torch
@@ -28,7 +28,7 @@ import torch
 import dirt_tpu_torch
 from .. import lighting
 from ..models import renderers
-from ..ops import _cuda
+from ..ops import _cuda, dispatch
 from ..samples import common
 from ..utils import meshes
 from . import face_sharding, launch, sharding
@@ -105,17 +105,10 @@ def rank_passes(n, device_type):
             return pixels[None].expand(shard, -1, -1, -1)
 
         def fit(_backend=backend, _render_fn=render_fn):
-            saved = os.environ.get("DIRT_TPU_TORCH_GRAD_BACKEND")
-            if _backend is not None:
-                os.environ["DIRT_TPU_TORCH_GRAD_BACKEND"] = _backend
-            try:
+            with (contextlib.nullcontext() if _backend is None
+                  else dispatch.grad_env_set(_backend)):
                 new_params, loss = sharding.data_parallel_fit_step(
                     mesh, _render_fn, params, targets, learning_rate=1e-3)
-            finally:
-                if saved is None:
-                    os.environ.pop("DIRT_TPU_TORCH_GRAD_BACKEND", None)
-                else:
-                    os.environ["DIRT_TPU_TORCH_GRAD_BACKEND"] = saved
             _check(f"backend {_backend}", loss, new_params.values())
             return loss
         out[f"fit {backend}"] = _counted(fit)

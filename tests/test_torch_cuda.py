@@ -146,7 +146,8 @@ def _check_face_major_reductions(device, monkeypatch, parts, channels,
         need = counts.clamp(min=1).reshape(bg.shape[0], -1).sum(-1)
         monkeypatch.setenv("DIRT_TPU_TORCH_SLOTS_PER_IMAGE",
                            str(int(need.min()) // 2))
-    _, slot_run, slot_item, slot_dma, _ = grad_blocks.pack_slots(*schedule)
+    _, slot_run, slot_item, slot_dma, _ = grad_blocks.pack(*schedule,
+                                                           slots=True)
     k3_args = (table, planes, starts, counts, tile_ids, channels, parts)
     k6_args = (table, planes, slot_run, slot_item, slot_dma, channels, parts)
     rows = {}
@@ -380,7 +381,7 @@ def test_slot_and_resident_sweeps_equal_k1(device, channels):
     k1 = forward_blocks.raster_sweep(*args)
     assert torch.equal(forward_blocks.resident_sweep(*args), k1)
     assert torch.equal(forward_blocks.resident_sweep_plain(*args), k1)
-    slots = forward_blocks.pack_slots(v, c, f, h, w, 16, 16, 32)
+    slots = forward_blocks.pack(v, c, f, h, w, 16, 16, 32, slots=True)
     slot_args = (*slots[:4], 2, channels, h, w, tiles_x, num_tiles, 16, 16)
     assert torch.equal(forward_blocks.slot_sweep(*slot_args), k1)
     assert torch.equal(forward_blocks.slot_sweep_plain(*slot_args), k1)
@@ -446,7 +447,8 @@ def test_sweeps_twice_and_against_each_other(device, scene):
                                                         16, 32)
     args = (table, starts, counts, ids, channels, h, w, tiles_x, num_tiles,
             16, 16)
-    slot_args = (*forward_blocks.pack_slots(v, c, f, h, w, 16, 16, 32)[:4],
+    slot_args = (*forward_blocks.pack(v, c, f, h, w, 16, 16, 32,
+                                      slots=True)[:4],
                  batch, channels, h, w, tiles_x, num_tiles, 16, 16)
     want = forward_blocks.raster_sweep_plain(*args)
     assert bool((want[:, -1] >= 0).any())

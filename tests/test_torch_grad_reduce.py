@@ -151,7 +151,7 @@ def test_chip_smoke_visited_tiles_are_the_schedules():
     _, clip, _, faces, _ = smoke.bench_scene(2, 128, 16, "cpu")
     schedule = (clip, faces, 128, 128, 16, 16, 32)
     _, starts, counts, tile_ids, _ = grad_blocks.pack(*schedule)
-    _, _, slot_item, slot_dma, _ = grad_blocks.pack_slots(*schedule)
+    _, _, slot_item, slot_dma, _ = grad_blocks.pack(*schedule, slots=True)
     visits = smoke.csr_tiles(starts, counts, tile_ids)
     assert visits.numel() == int(counts.sum()) > 0
     assert torch.equal(visits, slot_dma[slot_item >= 0])

@@ -319,11 +319,18 @@ def test_unknown_modes_raise():
 
 # -- utils/profiling ------------------------------------------------------
 
+# The most a span's time.time_ns() stamp may stray outside a profiler
+# range it was taken in, on the trace's clock (microseconds): the two
+# clocks' rounding (time.time_ns() stamps taken inside ranges lie 3.5 us
+# or more inside them).
+CLOCK_US = 20.0
+
+
 def test_profiling_trace_annotate_and_sections(tmp_path):
     """trace() writes one Chrome trace with the port's spans of its
     session merged in, on their own track and on the profiler's clock: the
-    forward's entry span lies within 1 ms of a record_function range
-    around the same call."""
+    forward's entry span lies inside a record_function range around the
+    same call, to within the two clocks' rounding (CLOCK_US)."""
     import json
     import dirt_tpu_torch
     from dirt_tpu_torch.utils import profiling
@@ -350,8 +357,11 @@ def test_profiling_trace_annotate_and_sections(tmp_path):
                                           "dirt.forward.sweep"}
     assert {e["pid"] for e in spans} == {profiling.SPAN_PID}
     entry, = [e for e in spans if e["name"] == "dirt.forward"]
-    assert abs(entry["ts"] - outer["ts"]) < 1e3
-    assert abs(entry["ts"] + entry["dur"] - outer["ts"] - outer["dur"]) < 1e3
+    # How far inside depends on the host: a preemption or a collection
+    # between the range's entry and the span's widens the gap, unbounded
+    # under a loaded suite.  Past the range's ends only rounding remains.
+    assert entry["ts"] >= outer["ts"] - CLOCK_US
+    assert entry["ts"] + entry["dur"] <= outer["ts"] + outer["dur"] + CLOCK_US
     sweep, = [e for e in spans if e["name"] == "dirt.forward.sweep"]
     assert sweep["args"]["parent"] == "dirt.forward"
     runs, = [e for e in spans if e["name"] == "dirt.forward.runs"]

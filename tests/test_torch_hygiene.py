@@ -11,6 +11,8 @@
   says so in its header; a kernel that replaces none says that instead.
 * CPU tensors run the plain versions; tensors on any other non-CUDA device
   raise instead of falling back.
+* The port reads six DIRT_TPU_TORCH_* environment variables, the
+  gradient's choice in one module.
 * Entry points given numpy inputs run on the card: without one they
   raise, unless the caller asks for the CPU with device="cpu" (the
   rasteriser's, matrices', lighting's, projection's, textures', a
@@ -74,6 +76,52 @@ def test_no_source_file_imports_jax():
                 assert not name.split(".")[0] in ("jax", "dirt_tpu",
                                                   "repro"), (
                     f"{path.relative_to(REPO)} imports {name}")
+
+
+def _environ_reads():
+    """{name: {module}} of the DIRT_TPU_TORCH_* variables the port's
+    source reads: os.environ.get(name, ...), os.getenv(name, ...) and
+    os.environ[name] as a value."""
+    is_environ = lambda n: (isinstance(n, ast.Attribute)
+                            and n.attr == "environ"
+                            and isinstance(n.value, ast.Name)
+                            and n.value.id == "os")
+    reads = {}
+    for path in PKG.rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            key = None
+            if isinstance(node, ast.Call) and node.args and isinstance(
+                    node.func, ast.Attribute) and (
+                    (node.func.attr == "get" and is_environ(node.func.value))
+                    or (node.func.attr == "getenv"
+                        and isinstance(node.func.value, ast.Name)
+                        and node.func.value.id == "os")):
+                key = node.args[0]
+            elif (isinstance(node, ast.Subscript)
+                  and isinstance(node.ctx, ast.Load)
+                  and is_environ(node.value)):
+                key = node.slice
+            if key is None:
+                continue
+            assert isinstance(key, ast.Constant), (
+                f"{path.relative_to(REPO)}:{node.lineno} reads a variable "
+                f"named at run time")
+            if key.value.startswith("DIRT_TPU_TORCH_"):
+                reads.setdefault(key.value[len("DIRT_TPU_TORCH_"):],
+                                 set()).add(str(path.relative_to(PKG)))
+    return reads
+
+
+def test_environment_switches():
+    """The port reads six DIRT_TPU_TORCH_* variables, each choosing what
+    is computed or how much; switches whose settings compute the same
+    values are module constants that tests set.  The gradient's choice
+    is read in one module."""
+    reads = _environ_reads()
+    assert set(reads) == {"BACKEND", "BLOCKS_THRESHOLD", "GRAD_BACKEND",
+                          "SLOTS_PER_IMAGE", "TILE_FACE_CAP",
+                          "DIAGONAL_DILATION"}
+    assert reads["GRAD_BACKEND"] == {"ops/dispatch.py"}
 
 
 def _last_line(out):

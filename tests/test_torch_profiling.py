@@ -148,6 +148,21 @@ def _hand_counts(hit, num_slots):
     return sum(kept), sum(n - k for n, k in zip(per_image, kept))
 
 
+def table_and_hits(module, pass_, *scene_args):
+    """A pass's sorted face table [B, NB*chunk, D], from its pack, and its
+    [B, T, NB] block hits, from hit_matrix with the pass's columns and
+    dilation, as its schedule builds them."""
+    table = module.pack(*scene_args, SIZE, SIZE, module.TILE_H,
+                        module.TILE_W, module.CHUNK)[0]
+    table = table.reshape(scene_args[0].shape[0], -1, table.shape[-1])
+    hit = forward_blocks.hit_matrix(
+        table, pass_.bbox, table.shape[1] // module.CHUNK, module.CHUNK,
+        -(-SIZE // module.TILE_H), -(-SIZE // module.TILE_W), module.TILE_H,
+        module.TILE_W, edge_cols=pass_.edge, height=SIZE, width=SIZE,
+        dilate=pass_.dilate)
+    return table, hit
+
+
 @pytest.mark.parametrize("slots", [0, 28])
 def test_counters_equal_the_schedules_sums(recorder, monkeypatch, slots):
     """At 28 slots an image the gradient's dilated hits (31 and 30 an
@@ -156,9 +171,10 @@ def test_counters_equal_the_schedules_sums(recorder, monkeypatch, slots):
     background, clip, colors, faces = scene(segments=32)
     tiles = (SIZE, SIZE, forward_blocks.TILE_H, forward_blocks.TILE_W,
              forward_blocks.CHUNK)
-    table, hit = forward_blocks._table_and_hits(clip, colors, faces, *tiles)
-    grad_table, grad_hit, _ = grad_blocks._table_and_hits(clip, faces,
-                                                          *tiles)
+    table, hit = table_and_hits(forward_blocks, forward_blocks.FORWARD,
+                                clip, colors, faces)
+    grad_table, grad_hit = table_and_hits(grad_blocks, grad_blocks.GRADIENT,
+                                          clip, faces)
     grid = (hit.shape[2], forward_blocks.CHUNK, -(-SIZE // tiles[2]),
             -(-SIZE // tiles[3]), *tiles[2:4])
     windows = [int(forward_blocks.hit_windows(t, bbox, *grid).sum())

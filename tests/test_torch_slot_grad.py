@@ -132,8 +132,8 @@ def test_slot_grad_reduce_cut_runs_are_zero(case, monkeypatch):
     planes, _ = prepass_fused.plane_stack(case.tpixels, case.gp, case.taux,
                                           16, 16, 16)
     monkeypatch.setenv("DIRT_TPU_TORCH_SLOTS_PER_IMAGE", "6")
-    table, slot_run, slot_item, slot_dma, _ = grad_blocks.pack_slots(
-        case.v, case.f, 48, 128, 16, 16, 32)
+    table, slot_run, slot_item, slot_dma, _ = grad_blocks.pack(
+        case.v, case.f, 48, 128, 16, 16, 32, slots=True)
     rows = grad_blocks.slot_grad_reduce(table, planes, slot_run, slot_item,
                                         slot_dma, 3, "all")
     live = torch.zeros(table.shape[0], dtype=torch.bool)

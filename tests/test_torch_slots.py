@@ -188,8 +188,8 @@ def test_slot_forward_equals_fused_at_gpu_shapes(monkeypatch, name):
 
 def test_slot_sweep_plain_without_live_slots_is_background():
     bg, v, c, f = _torch(SCENES["nf40"]())
-    table, slot_tile, slot_block, slot_dma, _ = forward_blocks.pack_slots(
-        v, c, f, 64, 128, 16, 16, 32)
+    table, slot_tile, slot_block, slot_dma, _ = forward_blocks.pack(
+        v, c, f, 64, 128, 16, 16, 32, slots=True)
     state = forward_blocks.slot_sweep(
         table, slot_tile, torch.full_like(slot_block, -1), slot_dma, 2, 3,
         64, 128, 8, 32, 16, 16)

@@ -220,12 +220,13 @@ def test_compacted_slot_list_is_the_csr_of_live_slots(budget):
     num_tiles = -(-height // TILE) * -(-width // TILE)
     runs = batch * num_tiles
     if budget is None:
-        packed = forward_blocks.pack_slots(clip, colors, faces, height, width,
-                                           TILE, TILE, CHUNK)
+        packed = forward_blocks.pack(clip, colors, faces, height, width,
+                                     TILE, TILE, CHUNK, slots=True)
     else:
         with chip_smoke.slot_budget(budget):
-            packed = forward_blocks.pack_slots(clip, colors, faces, height,
-                                               width, TILE, TILE, CHUNK)
+            packed = forward_blocks.pack(clip, colors, faces, height,
+                                         width, TILE, TILE, CHUNK,
+                                         slots=True)
     _, slot_tile, slot_block, slot_dma, dropped = packed
     assert (budget is None) == (int(dropped.sum()) == 0)
     threads = forward_blocks.sweep_shape(TILE * TILE, CHUNK,
