@@ -34,7 +34,7 @@ SOURCES = ("raster_sweep.cu", "hit_plane.cu", "grad_prepass.cu",
            "grad_reduce.cu", "dense_sweep.cu", "dense_grad.cu",
            "pallas_raster.cu", "mxu_grad.cu", "resident_sweep.cu",
            "slot_sweep.cu", "slot_grad.cu", "scalar_accum.cu",
-           "build_runs.cu")
+           "build_runs.cu", "face_table.cu")
 HEADERS = ("sweep_math.cuh", "grad_math.cuh", "slots.cuh", "async_copy.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC")

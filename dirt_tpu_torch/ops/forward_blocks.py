@@ -6,7 +6,10 @@ The schedule is the JAX package's fused-CSR one:
   * faces are grouped into BLOCKS of `chunk` rows of the face table
     (ops/forward_pallas.py layout), after a Morton sort of the rows by
     their bbox-centre tile (spatial_order) so blocks are spatially
-    coherent whatever the draw order;
+    coherent whatever the draw order (face_table, kernel K13 on CUDA:
+    each face's Morton key, their stable argsort, and the table's rows
+    written from the vertices straight into that order; the CPU runs the
+    plain table, spatial_order and a gather, face_table_plain);
   * the hit test (hit_matrix, kernel K4 on CUDA) keeps a (tile, block)
     pair when some member face's bbox overlaps the tile and its
     edge-sign regions can reach it (the conservative half-plane cull).
@@ -58,7 +61,7 @@ compare with it bitwise.
 Both passes build their schedule in one function, schedule, which takes
 the pass (Pass: FORWARD here, grad_blocks.GRADIENT) as data.  Under a
 torch.profiler session each stage records a span (utils/profiling):
-dirt.forward.table (face table, Morton sort), dirt.forward.hits (K4;
+dirt.forward.table (K13: face table, Morton sort), dirt.forward.hits (K4;
 counter forward.hit_window, the windows' tiles), dirt.forward.runs (the
 schedule, K12; counters forward.visits and forward.dropped),
 dirt.forward.sweep and dirt.forward.finalize.
@@ -71,7 +74,8 @@ import os
 
 import torch
 
-from . import _cuda, forward_dense, forward_pallas, reference
+from . import (_cuda, forward_dense, forward_pallas, geometry, grad_tables,
+               reference)
 from ..utils import profiling
 
 TILE_H = 16
@@ -111,16 +115,25 @@ def _morton(y, x):
     return (spread(y) << 1) | spread(x)
 
 
-def spatial_order(face_data, bbox_cols, tile_h, tile_w):
-    """[B, F] stable permutation of the table rows by the Morton code of
-    each face's bbox-centre tile; empty bboxes sort last, ties keep draw
-    order."""
-    r0, r1, c0, c1 = (face_data[..., c].to(torch.int32) for c in bbox_cols)
+_EMPTY_KEY = torch.iinfo(torch.int32).max
+
+
+def spatial_keys(r0, r1, c0, c1, tile_h, tile_w):
+    """The int32 Morton code of each pixel bbox's centre tile (int32
+    bounds); _EMPTY_KEY for an empty bbox (r1 < r0)."""
     empty = r1 < r0
     ty = ((r0 + r1) // 2).clamp(min=0) // tile_h
     tx = ((c0 + c1) // 2).clamp(min=0) // tile_w
     key = _morton(ty.clamp(0, (1 << 15) - 1), tx.clamp(0, (1 << 15) - 1))
-    key = torch.where(empty, torch.iinfo(torch.int32).max, key)
+    return torch.where(empty, _EMPTY_KEY, key)
+
+
+def spatial_order(face_data, bbox_cols, tile_h, tile_w):
+    """[B, F] stable permutation of the table rows by the Morton code of
+    each face's bbox-centre tile; empty bboxes sort last, ties keep draw
+    order."""
+    bbox = (face_data[..., c].to(torch.int32) for c in bbox_cols)
+    key = spatial_keys(*bbox, tile_h, tile_w)
     return torch.argsort(key, dim=-1, stable=True).to(torch.int32)
 
 
@@ -305,6 +318,166 @@ def takes_resident(face_table, num_images):
     limit = (_cuda.shared_memory_optin(face_table.device)
              if _cuda.on_cuda(face_table) else None)
     return table_bytes <= resident_budget_bytes(limit)
+
+
+# --------------------------------------------------------------------------
+# K13: the face tables
+# --------------------------------------------------------------------------
+
+# K13 (csrc/face_table.cu): a keys launch (the Morton keys the stable
+# argsort orders) and a rows launch (the table written in that order); its
+# launch count is two a table.
+FACE_TABLE = _cuda.Kernel(
+    "face_table", "dirt_face_table",
+    [_cuda.ptr] * 6 + [_cuda.i32] * 9 + [_cuda.f32] * 2 + [_cuda.i32] * 2
+    + [_cuda.ptr],
+    replaces=None, source="face_table.cu")
+
+# A face table's layout as K13 takes it: the plain builder of the unsorted
+# table (vertices, faces, attrs, height, width, pad_rows), the bbox columns,
+# the face-index column and the bbox's widening.  The forward's
+# (forward_pallas._face_table, 27 + 3C columns) goes with vertex
+# attributes, the gradient's (grad_tables._grad_face_table, 21) with none.
+TableLayout = collections.namedtuple("TableLayout", "build bbox face widen")
+_FORWARD_TABLE = TableLayout(
+    lambda v, f, a, h, w, pad: forward_pallas._face_table(v, a, f, h, w, pad),
+    _BBOX, 19, 0)
+_GRADIENT_TABLE = TableLayout(
+    lambda v, f, a, h, w, pad: grad_tables._grad_face_table(v, f, h, w, pad),
+    grad_tables._BBOX, 4, 1)
+
+
+def table_layout(attrs):
+    """The TableLayout of the table of vertex attributes `attrs` (None:
+    the gradient's)."""
+    return _GRADIENT_TABLE if attrs is None else _FORWARD_TABLE
+
+
+def face_table_plain(vertices, faces, attrs, height, width, rows, tile=None):
+    """A pass's face table by the plain path: the unsorted table of
+    table_layout(attrs), padded to `rows`, sorted by spatial_order where
+    `tile` = (tile_h, tile_w) is given.  Returns (table [B, rows, D],
+    order [B, rows] int32, the unsorted row each row came from)."""
+    layout = table_layout(attrs)
+    table = layout.build(vertices, faces, attrs, height, width,
+                         rows - faces.shape[1])
+    if tile is None:
+        order = torch.arange(rows, dtype=torch.int32,
+                             device=vertices.device).expand(faces.shape[0], -1)
+        return table, order
+    order = spatial_order(table, layout.bbox, *tile)
+    return (torch.take_along_dim(table, order[..., None].long(),
+                                 dim=1).contiguous(), order)
+
+
+def face_keys_plain(vertices, faces, rows, height, width, widen, tile_h,
+                    tile_w):
+    """[B, rows] int32: K13's keys, from the vertices: spatial_keys of each
+    face's pixel bbox (forward_pallas.pixel_bbox widened by `widen`, the
+    table's bbox columns), _EMPTY_KEY for the rows past the faces."""
+    valid = geometry.face_setup(vertices, faces).valid
+    bbox = forward_pallas.pixel_bbox(geometry.gather_corners(vertices, faces),
+                                     valid, height, width, widen)
+    keys = spatial_keys(*bbox, tile_h, tile_w)
+    pad = torch.full((faces.shape[0], rows - faces.shape[1]), _EMPTY_KEY,
+                     dtype=torch.int32, device=keys.device)
+    return torch.cat([keys, pad], dim=1)
+
+
+def face_rows_plain(vertices, faces, attrs, rows, height, width, order=None):
+    """[B, rows, D] float32: K13's rows, set up row by row: row j of image
+    b is the table_layout(attrs) row of face order[b, j] (order [B, rows]
+    int32; j where None), or the pad row where that is past the faces."""
+    layout = table_layout(attrs)
+    batch, num_faces = faces.shape[:2]
+    if order is None:
+        order = torch.arange(rows, dtype=torch.int32,
+                             device=faces.device).expand(batch, -1)
+    pad = layout.build(vertices, faces[:, :0], attrs, height, width, 1)
+    real = (order < num_faces)[..., None]
+    picked = torch.take_along_dim(
+        faces, torch.where(real, order[..., None], 0).long(), dim=1)
+    table = layout.build(vertices, picked, attrs, height, width, 0)
+    table[..., layout.face] = order.float()
+    return torch.where(real, table, pad)
+
+
+def _face_launch(vertices, faces, attrs, rows, height, width, widen,
+                 order=None, keys=None, out=None, tile=(1, 1)):
+    """One K13 launch on checked inputs: the keys launch into `keys`
+    [B, rows] int32, else the rows launch into `out` [B, rows, D]."""
+    batch, num_vertices = vertices.shape[:2]
+    num_faces = faces.shape[1]
+    if not 0 <= num_faces <= rows:
+        raise ValueError(f"K13 pads {num_faces} faces to {rows} rows")
+    channels = 0 if attrs is None else attrs.shape[-1]
+    shape = (batch, rows)
+    FACE_TABLE(
+        _cuda.check("vertices", vertices, torch.float32,
+                    (batch, num_vertices, 4)),
+        _cuda.check("faces", faces, torch.int32, (batch, num_faces, 3)),
+        None if attrs is None else _cuda.check(
+            "attrs", attrs, torch.float32, (batch, num_vertices, channels)),
+        None if order is None else _cuda.check("order", order, torch.int32,
+                                               shape),
+        None if keys is None else _cuda.check("keys", keys, torch.int32,
+                                              shape),
+        None if out is None else _cuda.check("out", out, torch.float32),
+        batch, num_vertices, num_faces, rows, channels, int(attrs is None),
+        widen, height, width, width / 2.0, height / 2.0, *tile,
+        _cuda.stream())
+
+
+def face_keys(vertices, faces, rows, height, width, widen, tile_h, tile_w):
+    """K13's keys launch: face_keys_plain's keys, by the CUDA kernel for
+    CUDA tensors and by the plain version for CPU tensors."""
+    if not _cuda.on_cuda(vertices, faces):
+        return face_keys_plain(vertices, faces, rows, height, width, widen,
+                               tile_h, tile_w)
+    keys = torch.empty(faces.shape[0], rows, dtype=torch.int32,
+                       device=faces.device)
+    _face_launch(vertices, faces, None, rows, height, width, widen,
+                 keys=keys, tile=(tile_h, tile_w))
+    return keys
+
+
+def face_rows(vertices, faces, attrs, rows, height, width, order=None):
+    """K13's rows launch: face_rows_plain's rows, by the CUDA kernel for
+    CUDA tensors and by the plain version for CPU tensors."""
+    tensors = [t for t in (vertices, faces, attrs, order) if t is not None]
+    if not _cuda.on_cuda(*tensors):
+        return face_rows_plain(vertices, faces, attrs, rows, height, width,
+                               order)
+    width_d = (grad_tables._DF if attrs is None
+               else forward_pallas._BASE + 3 * attrs.shape[-1])
+    out = torch.empty(faces.shape[0], rows, width_d, device=faces.device)
+    _face_launch(vertices, faces, attrs, rows, height, width,
+                 table_layout(attrs).widen, order=order, out=out)
+    return out
+
+
+def face_table(vertices, faces, attrs, height, width, rows, tile=None):
+    """A pass's face table, face_table_plain's bit for bit: on CUDA K13's
+    keys, their stable argsort and K13's rows in that order (the rows
+    alone, in face order, where `tile` is None); the plain path on the
+    CPU."""
+    if not _cuda.on_cuda(vertices, faces):
+        return face_table_plain(vertices, faces, attrs, height, width, rows,
+                                tile)
+    vertices = vertices.float().contiguous()
+    faces = faces.to(torch.int32).contiguous()
+    if attrs is not None:
+        attrs = attrs.float().contiguous()
+    order = None
+    if tile is not None:
+        keys = face_keys(vertices, faces, rows, height, width,
+                         table_layout(attrs).widen, *tile)
+        order = torch.argsort(keys, dim=-1, stable=True).to(torch.int32)
+    table = face_rows(vertices, faces, attrs, rows, height, width, order)
+    if order is None:
+        order = torch.arange(rows, dtype=torch.int32,
+                             device=faces.device).expand(faces.shape[0], -1)
+    return table, order
 
 
 # --------------------------------------------------------------------------
@@ -783,10 +956,11 @@ Pass = collections.namedtuple("Pass", "name bbox edge dilate by_block visits")
 FORWARD = Pass("forward", _BBOX, 0, 0, False, "forward.visits")
 
 
-def schedule(pass_, vertices, num_faces, table, height, width, tile_h, tile_w,
+def schedule(pass_, vertices, faces, attrs, height, width, tile_h, tile_w,
              chunk, slots):
-    """A pass's schedule for a batch, in spans dirt.<name>.table (`table`
-    (pad_rows) -> [B, NB*chunk, D], Morton-sorted when SPATIAL),
+    """A pass's schedule for a batch, in spans dirt.<name>.table (the face
+    table of vertex attributes `attrs`, or the gradient's for None, padded
+    to [B, NB*chunk, D] and Morton-sorted when SPATIAL: face_table),
     dirt.<name>.hits (K4; counter <name>.hit_window) and dirt.<name>.runs
     (counter <name>.dropped, and pass_.visits): returns (face_table [B*NB,
     chunk, D], the runs folded over the batch, dropped [B], order [B,
@@ -796,18 +970,13 @@ def schedule(pass_, vertices, num_faces, table, height, width, tile_h, tile_w,
     pass_.by_block.  The runs are CSR (starts + S*b, counts, ids + I*b),
     or with `slots` the slot schedule (slot_run + R*b, slot_item per
     image, slot_dma + I*b, dirt_tpu's layout)."""
-    batch = vertices.shape[0]
+    batch, num_faces = faces.shape[:2]
     num_blocks = _cdiv(num_faces, chunk)
     tiles_y, tiles_x = _cdiv(height, tile_h), _cdiv(width, tile_w)
     with profiling.span(f"dirt.{pass_.name}.table", vertices):
-        face_data = table(num_blocks * chunk - num_faces)
-        if SPATIAL:
-            order = spatial_order(face_data, pass_.bbox, tile_h, tile_w)
-            face_data = torch.take_along_dim(
-                face_data, order[..., None].long(), dim=1).contiguous()
-        else:
-            order = torch.arange(num_blocks * chunk, dtype=torch.int32,
-                                 device=vertices.device).expand(batch, -1)
+        face_data, order = face_table(
+            vertices, faces, attrs, height, width, num_blocks * chunk,
+            (tile_h, tile_w) if SPATIAL else None)
     with profiling.span(f"dirt.{pass_.name}.hits", face_data):
         hit = hit_matrix(face_data, pass_.bbox, num_blocks, chunk, tiles_y,
                          tiles_x, tile_h, tile_w, edge_cols=pass_.edge,
@@ -840,10 +1009,8 @@ def pack(vertices, vertex_colors, faces, height, width, tile_h, tile_w,
     chunk, D], starts [B*T], counts [B*T], block_ids [B*S], dropped [B]),
     or with `slots` (face_table, slot_tile [B*S], slot_block [B*S],
     slot_dma [B*S], dropped [B])."""
-    table = functools.partial(forward_pallas._face_table, vertices,
-                              vertex_colors, faces, height, width)
     face_table, runs, dropped, _ = schedule(
-        FORWARD, vertices, faces.shape[1], table, height, width, tile_h,
+        FORWARD, vertices, faces, vertex_colors, height, width, tile_h,
         tile_w, chunk, slots)
     return (face_table, *runs, dropped)
 

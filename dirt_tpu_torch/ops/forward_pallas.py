@@ -139,7 +139,9 @@ def _pack_faces(vertices, vertex_colors, faces, height, width, num_chunks,
     The GPU layout holds per-tile row INDICES into one face table per
     image, where dirt_tpu copies the rows themselves per tile
     ([T, NC, CHUNK, D] floats, O(T * F * D)): face_data[b, face_ids[b, t]]
-    is dirt_tpu's tiled table of image b, tile t, bit for bit.
+    is dirt_tpu's tiled table of image b, tile t, bit for bit.  The
+    table is forward_blocks.face_table's in face order (K13's rows on
+    CUDA, _face_table on the CPU).
 
     Returns:
         face_data: [B, F', _BASE + 3C] float32, F' = max(num_chunks *
@@ -149,11 +151,12 @@ def _pack_faces(vertices, vertex_colors, faces, height, width, num_chunks,
         dropped: [B] int32 hits beyond the slots, summed over tiles
             (0 when the packing is exact; see RasterAux.dropped).
     """
+    from . import forward_blocks
     num_faces = faces.shape[1]
     max_rows = num_chunks * chunk
     pad_rows = max(max_rows, num_faces) - num_faces
-    face_data = _face_table(vertices, vertex_colors, faces, height, width,
-                            pad_rows)
+    face_data, _ = forward_blocks.face_table(
+        vertices, faces, vertex_colors, height, width, num_faces + pad_rows)
     overlap = tile_overlap(face_data, (20, 21, 22, 23), tiles_y, tiles_x,
                            tile_h, tile_w)
     face_ids, counts = hits_first(overlap, max_rows)

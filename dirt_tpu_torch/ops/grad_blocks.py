@@ -3,8 +3,9 @@ the backward (PyTorch port of dirt_tpu/ops/grad_blocks.py).
 
   * plane_stack (ops/prepass_fused.py, kernel K2 on CUDA) builds the
     per-pixel planes in tile-major layout;
-  * the gradient face table (ops/grad_tables.py) is Morton-sorted and
-    binned with the forward's hit test (kernel K4) at a one-pixel dilation,
+  * the gradient face table (ops/grad_tables.py; kernel K13 on CUDA
+    writes it Morton-sorted, forward_blocks.face_table) is binned with
+    the forward's hit test (kernel K4) at a one-pixel dilation,
     and build_runs (K12 on CUDA, which reads the transposed view in
     place) lays the TRANSPOSED hits out as CSR runs: per face block, the
     tiles its faces can reach;
@@ -35,7 +36,6 @@ dirt.backward.reduce (K3 or K6) and dirt.backward.scatter.
 """
 
 import collections
-import functools
 
 import torch
 
@@ -46,7 +46,7 @@ from ..utils import profiling
 TILE_H = 16
 TILE_W = 16
 CHUNK = 32
-_BBOX = (0, 1, 2, 3)
+_BBOX = grad_tables._BBOX
 FUSED = True
 
 GRAD_REDUCE = _cuda.Kernel(
@@ -258,11 +258,9 @@ def pack(vertices, faces, height, width, tile_h, tile_w, chunk, slots=False):
     rows to faces.  The dilated hits make this schedule a superset of the
     forward's, so it can truncate visits (backward.dropped) where the
     forward's truncates none."""
-    table = functools.partial(grad_tables._grad_face_table, vertices, faces,
-                              height, width)
     face_table, runs, _, row_face = forward_blocks.schedule(
-        GRADIENT, vertices, faces.shape[1], table, height, width, tile_h,
-        tile_w, chunk, slots)
+        GRADIENT, vertices, faces, None, height, width, tile_h, tile_w,
+        chunk, slots)
     return (face_table, *runs, row_face)
 
 

@@ -14,6 +14,7 @@ import torch
 from . import forward_pallas, geometry
 
 _DF = 21
+_BBOX = (0, 1, 2, 3)
 
 
 def _grad_face_table(vertices, faces, height, width, pad_rows):
@@ -49,7 +50,9 @@ def _grad_face_table(vertices, faces, height, width, pad_rows):
 def _pack_grad_faces(vertices, faces, height, width, num_chunks, tiles_y,
                      tiles_x, chunk, tile_h, tile_w):
     """Exact per-tile hits-first face lists of the gradient table (see
-    forward_pallas._pack_faces: row indices into one table per image).
+    forward_pallas._pack_faces: row indices into one table per image; the
+    table is forward_blocks.face_table's in face order, K13's rows on
+    CUDA).
 
     Returns (face_data [B, F', _DF] f32, face_ids [B, T, num_chunks *
     chunk] int32 rows of it, counts [B, T] int32 cut to the slots,
@@ -58,11 +61,13 @@ def _pack_grad_faces(vertices, faces, height, width, num_chunks, tiles_y,
     the same geometry reports it (its narrower bboxes give a near-subset
     of these lists) in RasterAux.dropped.
     """
+    from . import forward_blocks
     num_faces = faces.shape[1]
     max_rows = num_chunks * chunk
     pad_rows = max(max_rows, num_faces) - num_faces
-    face_data = _grad_face_table(vertices, faces, height, width, pad_rows)
-    overlap = forward_pallas.tile_overlap(face_data, (0, 1, 2, 3), tiles_y,
+    face_data, _ = forward_blocks.face_table(vertices, faces, None, height,
+                                             width, num_faces + pad_rows)
+    overlap = forward_pallas.tile_overlap(face_data, _BBOX, tiles_y,
                                           tiles_x, tile_h, tile_w)
     face_ids, counts = forward_pallas.hits_first(overlap, max_rows)
     base_orig = torch.cat([

@@ -5,7 +5,10 @@ elsewhere.  On the card, run them without the JAX test configuration:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
-The checks are chip_smoke.py's, at small shapes: the hit plane, the CSR
+The checks are chip_smoke.py's, at small shapes: the face tables (K13,
+as bits, on a 4 x 512^2 65,536-face scene and edge rows at 3, 6 and 10
+channels, and the blocks step with them against the plain tables; CPU
+models in tests/test_torch_face_table.py), the hit plane, the CSR
 runs (K12; tests/test_torch_build_runs.py holds it over densities,
 orientations and budgets), the sweeps' states (the slot sweep K5b's and
 the resident sweep K5's also
@@ -56,10 +59,27 @@ def test_kernels_match_plain(device, scene):
     }[scene]
     errors, _, _ = chip_smoke.compare_kernels(scene, make())
     assert errors["hit_plane"] == errors["raster_sweep"] == 0.0
-    assert errors["build_runs"] == 0.0
+    assert errors["face_table"] == errors["build_runs"] == 0.0
     assert errors["dense_sweep"] == errors["grad_prepass"] == 0.0
     assert errors["pallas_raster"] == 0.0
     assert errors["slot_sweep"] == errors["resident_sweep"] == 0.0
+
+
+def test_face_table(device):
+    # K13's keys, order and rows == the plain path's bit for bit, sorted
+    # and in face order, two launches a sorted table: on a 4 x 512^2
+    # 65,536-face scene in both layouts and on the edge rows (near-zero
+    # and non-positive w, NaN, degenerate and off-screen faces) at C = 3,
+    # 6 and 10 and in the gradient's layout.
+    checked = chip_smoke.check_tables(chip_smoke.table_cases(device, 4))
+    assert len(checked) == 6
+
+
+def test_blocks_step_with_plain_tables(device):
+    # The blocks step with K13's tables and with the plain path's: equal
+    # pixels, gradients within GRAD_TOL; 4 launches a step, 0 plain.
+    chip_smoke.check_table_path(chip_smoke.bench_scene(4, 512, 8192, device),
+                                "4x512^2x65536f")
 
 
 @pytest.mark.parametrize("backend", ["blocks", "dense", "pallas"])

@@ -222,7 +222,8 @@ def test_kernels_name_what_they_replace():
     del forward_blocks, forward_dense, forward_pallas, grad_blocks
     del grad_dense, grad_mxu, prepass_fused, scalar_accum
     assert sorted(_cuda.KERNELS) == ["build_runs", "dense_grad_reduce",
-                                     "dense_sweep", "grad_prepass",
+                                     "dense_sweep", "face_table",
+                                     "grad_prepass",
                                      "grad_reduce", "hit_plane", "mxu_grad",
                                      "pallas_raster", "raster_sweep",
                                      "resident_sweep", "scalar_accum",

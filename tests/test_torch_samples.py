@@ -13,6 +13,7 @@ into --out, never over samples/*.ppm.
 """
 
 import importlib
+import os
 import pathlib
 import subprocess
 import sys
@@ -161,9 +162,13 @@ def test_fit_loss_falls(name):
 
 def test_sample_writes_into_out_not_over_samples(tmp_path):
     before = (SAMPLES / "simple.ppm").read_bytes()
+    # One torch thread in the sample's process too (one_torch_thread's
+    # reason): beside the suite's workers a thread a core made its fit
+    # take over 300 s where it takes a few alone.
     subprocess.run([sys.executable, "-m", "dirt_tpu_torch.samples.simple",
                     "--device", "cpu", "--out", str(tmp_path)], cwd=REPO,
-                   check=True, capture_output=True, timeout=300)
+                   check=True, capture_output=True, timeout=300,
+                   env=dict(os.environ, OMP_NUM_THREADS="1"))
     _levels_close(_read_ppm(tmp_path / "simple.ppm"),
                   SAMPLES / "simple.ppm")
     assert (SAMPLES / "simple.ppm").read_bytes() == before
