@@ -138,7 +138,13 @@ failure:
         wholly behind the camera drawn, every image's blocks, dense and
         pallas winner maps == the native oracle's, and against the GL
         clipping oracle (rasterise_clipped) only within one pixel of its
-        boundaries on under 2% of the pixels; c. the cylinder Jacobian of
+        boundaries on under 2% of the pixels; and the benchmark cell
+        cyl65536_b32_512_inside's scene (INSIDE_CELL: 32 x 512^2, 65,536
+        faces, the camera inside) on the blocks path alone: K13 == plain
+        on both packs' tables, dropped 0 in both schedules (the fullest
+        image's share of its slot budget printed), no face wholly behind
+        the camera drawn, gradients finite, image 0's winner map == the
+        native oracles' as above; c. the cylinder Jacobian of
         tests/test_cylinder_jacobian.py at 48 x 36: background rows within
         1e-4 of central differences, translation x/y within rtol 0.35, z
         by sign, 30 steps of rotation descent under 0.4 x the initial
@@ -2735,6 +2741,10 @@ SCALE_KERNELS = ("hit_plane", "raster_sweep", "grad_prepass", "grad_reduce",
 # (8,192 faces a tile) drops hits: <= 0 keeps every face a tile overlaps.
 UNCAPPED = 0
 CROSSING_DISTANCE = 0.3   # the camera inside the bench cylinder (bench: 3)
+# The benchmark cell cyl65536_b32_512_inside.inside's size (batch,
+# resolution, cylinder segments): a crossing scene of phase 4l b checked
+# on the blocks path alone, against the oracles on image 0.
+INSIDE_CELL = (32, 512, 8192)
 CLIPPED_SHARE = 0.02      # rasterise_clipped may differ on < 2% of pixels
 JACOBIAN_SIZE = (48, 36)  # tests/test_cylinder_jacobian.py's W, H
 JACOBIAN_BG = (0.4, 0.2, 0.2)
@@ -2808,7 +2818,8 @@ def start_oracles(pool, rows, crossings):
             jobs[(tag, "f64")] = pool.submit(
                 oracle.visibility_f64, clip, faces, *background.shape[:2])
     for tag, scene in crossings.items():
-        for b in range(scene[0].shape[0]):
+        large = scene[3].shape[1] >= LARGE_MESH
+        for b in range(1 if large else scene[0].shape[0]):
             image = _host(*(t[b] for t in scene[:4]))
             jobs[(tag, "f32", b)] = pool.submit(oracle.rasterise, *image)
             jobs[(tag, "clipped", b)] = pool.submit(
@@ -2987,9 +2998,71 @@ def check_crossing(tag, scene):
     return maps
 
 
+def budget_shares(scene):
+    """The forward and gradient schedules of `scene`'s blocks step, as
+    forward_blocks.schedule builds them: {pass: (dropped [B], the fullest
+    image's visits, kept and dropped, over its slot budget)}."""
+    from dirt_tpu_torch.ops import forward_blocks as fb, grad_blocks as gb
+    background, clip, colors, faces, _ = scene
+    batch, height, width = background.shape[:3]
+    tiles = _cdiv(height, fb.TILE_H) * _cdiv(width, fb.TILE_W)
+    blocks = _cdiv(faces.shape[1], fb.CHUNK)
+    out = {}
+    for pass_, attrs, shape in ((fb.FORWARD, colors, (tiles, blocks)),
+                                (gb.GRADIENT, None, (blocks, tiles))):
+        _, runs, dropped, _ = fb.schedule(
+            pass_, clip, faces, attrs, height, width, fb.TILE_H, fb.TILE_W,
+            fb.CHUNK, False)
+        visits = runs[1].reshape(batch, -1).sum(-1) + dropped
+        out[pass_.name] = (dropped.tolist(), int(visits.max())
+                           / fb.slots_per_image(*shape))
+    return out
+
+
+def check_inside(tag, scene):
+    """The benchmark's inside cell on the card (phase 4l b, INSIDE_CELL):
+    K13 == the plain path on both packs' tables; the blocks step's
+    forward and gradient schedules drop nothing; no face wholly behind
+    the camera drawn; the gradients finite.  Returns image 0's blocks
+    (winner map, pixels) on the host, check_crossing's form."""
+    import dirt_tpu_torch
+    from dirt_tpu_torch.ops import forward_blocks as fb
+    background, clip, colors, faces, _ = scene
+    height, width = background.shape[1:3]
+    rows = _cdiv(faces.shape[1], fb.CHUNK) * fb.CHUNK
+    check_tables({f"{tag} forward": (clip, faces, colors, height, width,
+                                     rows),
+                  f"{tag} gradient": (clip, faces, None, height, width,
+                                      rows)})
+    shares = budget_shares(scene)
+    for name, (dropped, _) in shares.items():
+        if max(dropped):
+            fail(f"{tag}: the {name} schedule dropped {dropped}")
+    _, grads = step(scene, "blocks")
+    if not all(bool(torch.isfinite(g).all()) for g in grads):
+        fail(f"{tag}: the blocks step's gradients are not finite")
+    pixels, aux = dirt_tpu_torch.rasterise_batch_with_aux(
+        background, clip, colors, faces, backend="blocks")
+    behind = behind_faces(clip, faces)
+    drawn = torch.gather(behind, 1,
+                         aux.face_index.clamp(min=0).flatten(1).long())
+    if bool((drawn & (aux.face_index.flatten(1) >= 0)).any()):
+        fail(f"{tag}: a face wholly behind the camera was drawn")
+    covered = float((aux.face_index >= 0).float().mean())
+    phase("crossing", f"{tag}: K13 == plain on both tables; dropped 0 in "
+          f"both schedules, the fullest image at "
+          + ", ".join(f"{name} {share:.4f}"
+                      for name, (_, share) in shares.items())
+          + f" of its slot budget; {int(behind.sum())} faces wholly behind "
+          f"the camera, none drawn; {covered:.4f} of the pixels covered; "
+          f"gradients finite")
+    return {"blocks": _host(aux.face_index[:1], pixels[:1])}
+
+
 def check_crossing_oracle(tag, maps, jobs):
-    """Every image's blocks, dense and pallas winner maps == the f32
-    oracle's, pixels within 1e-4, and against rasterise_clipped only
+    """Every image's winner maps in `maps` (blocks, dense and pallas, or
+    image 0's blocks at LARGE_MESH faces) == the f32 oracle's, pixels
+    within 1e-4, and against rasterise_clipped only
     within one pixel of its boundaries, on under CLIPPED_SHARE of the
     pixels.  Returns the line's text."""
     worst = 0
@@ -3014,8 +3087,9 @@ def check_crossing_oracle(tag, maps, jobs):
                 fail(f"{tag} {backend}: image {b} differs from the clipping "
                      f"oracle on {share:.4f} of its pixels")
             worst = max(worst, disagree)
-    return (f"{tag}: blocks, dense and pallas winner maps == the native "
-            f"oracle's on every image, pixels within 1e-4; vs the clipping "
+    return (f"{tag}: {', '.join(maps)} winner maps == the native "
+            f"oracle's on every image checked ({len(index)}), pixels within "
+            f"1e-4; vs the clipping "
             f"oracle only within one pixel of its boundaries, at most "
             f"{worst} of an image's {index[0].size} pixels")
 
@@ -3173,10 +3247,15 @@ def scale_scenes(device, rows=SCALE_ROWS, crossing_size=(16, 256)):
     scenes = {tag: bench_scene(batch, res, segments, device, right=right)
               for tag, batch, res, segments, right in rows}
     batch, res = crossing_size
+    cell_batch, cell_res, cell_segments = INSIDE_CELL
     crossings = {
         "test_clipping 1x48x64": clip_test_scene(device),
         f"cylinder inside {batch}x{res}^2x512f": bench_scene(
-            batch, res, 64, device, distance=CROSSING_DISTANCE)}
+            batch, res, 64, device, distance=CROSSING_DISTANCE),
+        f"cylinder inside {cell_batch}x{cell_res}^2x"
+        f"{8 * cell_segments}f": bench_scene(
+            cell_batch, cell_res, cell_segments, device,
+            distance=CROSSING_DISTANCE)}
     return scenes, crossings
 
 
@@ -3192,7 +3271,8 @@ def check_scale(scenes, crossings, jobs, device, card_line):
         torch.cuda.empty_cache()
         seconds[tag] = time.perf_counter() - t1
     t1 = time.perf_counter()
-    maps = {tag: check_crossing(tag, scene)
+    maps = {tag: (check_inside if scene[3].shape[1] >= LARGE_MESH
+                  else check_crossing)(tag, scene)
             for tag, scene in crossings.items()}
     seconds["crossing"] = time.perf_counter() - t1
     t1 = time.perf_counter()

@@ -38,6 +38,14 @@
 //    would not); float -> int32 is PyTorch's conversion on the card
 //    (cvt.rzi: saturating, NaN to 0), and the int32 sums after it wrap as
 //    the card's do.
+//  * The near/far clip.  A face with a corner at w <= 0 takes the bbox of
+//    its part inside -w <= z <= w (forward_pallas._clipped_bounds:
+//    Sutherland-Hodgman against z + w >= 0, then w - z >= 0, each crossing
+//    S + t (E - S) with t = d_S / (d_S - d_E)), in a function of its own
+//    that only those faces call, its arguments and result in registers and
+//    its polygons in local memory; the empty bbox where nothing is left, the full screen where a point left
+//    has w <= 0 or projects to a non-finite pixel.  Faces with every w > 0
+//    keep the projection of their corners.
 //
 // Layouts (forward_pallas.py, grad_tables.py), chosen by `grad`: the
 // forward's 27 + 3C columns (e, z and w -- NaN where the face is
@@ -130,6 +138,83 @@ __device__ __forceinline__ int clamp_to(int v, int hi) {
   return min(max(v, 0), hi);
 }
 
+// A point of a clipped polygon, clip space.
+struct Point {
+  float x, y, z, w;
+};
+
+// forward_pallas._clip_plane: the polygon in[0, n) clipped to d >= 0, d =
+// z + w (the near plane) or w - z (`far`), into out, in order; returns its
+// points.  out holds 2n.
+__device__ __forceinline__ int clip_plane(const Point* in, int n, bool far,
+                                          Point* out) {
+  int m = 0;
+  for (int i = 0; i < n; ++i) {
+    const Point s = in[i];
+    const Point e = in[i + 1 == n ? 0 : i + 1];
+    const float ds = far ? s.w - s.z : s.z + s.w;
+    const float de = far ? e.w - e.z : e.z + e.w;
+    const bool s_in = ds >= 0.0f;
+    if (s_in) out[m++] = s;
+    if (s_in != (de >= 0.0f)) {
+      const float t = ds / (ds - de);
+      out[m++] = Point{s.x + t * (e.x - s.x), s.y + t * (e.y - s.y),
+                       s.z + t * (e.z - s.z), s.w + t * (e.w - s.w)};
+    }
+  }
+  return m;
+}
+
+// A clipped bound, clamped to +/- forward_pallas._CLIP_LIMIT, to int32.
+__device__ __forceinline__ int clip_to_int(float v) {
+  constexpr float kLimit = 16777216.0f;
+  return __float2int_rz(fminf(fmaxf(v, -kLimit), kLimit));
+}
+
+// forward_pallas's clip status of a face's bbox.
+enum Clip { kFront = 0, kClipped = 1, kCulled = 2, kWhole = 3 };
+
+// A face's clip status and, where kClipped, its clipped points' projected
+// pixel bounds (floored least, ceiled greatest, each clamped to +/-
+// forward_pallas._CLIP_LIMIT).
+struct ClipBox {
+  int clip, col0, col1, row0, row1;
+};
+
+// forward_pallas._clipped_bounds of the face of corners p0, p1, p2 (x, y,
+// z, w): clipped to -w <= z <= w.  Its own function, called only for faces
+// with a corner at w <= 0, with its arguments and result in registers: the
+// polygons' local memory stays out of the table's common path.
+__device__ __noinline__ ClipBox clipped_bounds(Point p0, Point p1, Point p2,
+                                               float half_w, float half_h) {
+  const Point tri[3] = {p0, p1, p2};
+  Point once[6], both[12];
+  const int n_once = clip_plane(tri, 3, false, once);
+  const int n = clip_plane(once, n_once, true, both);
+  ClipBox box{kCulled, 0, 0, 0, 0};
+  if (n == 0) return box;
+  const float inf = __int_as_float(0x7f800000);
+  float c0 = inf, c1 = -inf, r0 = inf, r1 = -inf;
+  for (int i = 0; i < n; ++i) {
+    const float px = (both[i].x / both[i].w + 1.0f) * half_w;
+    const float py = (1.0f - both[i].y / both[i].w) * half_h;
+    if (both[i].w <= 0.0f || !isfinite(px) || !isfinite(py)) {
+      box.clip = kWhole;
+      return box;
+    }
+    c0 = fminf(c0, px);
+    c1 = fmaxf(c1, px);
+    r0 = fminf(r0, py);
+    r1 = fmaxf(r1, py);
+  }
+  box.clip = kClipped;
+  box.col0 = clip_to_int(floorf(c0 - 0.5f));
+  box.col1 = clip_to_int(ceilf(c1 - 0.5f));
+  box.row0 = clip_to_int(floorf(r0 - 0.5f));
+  box.row1 = clip_to_int(ceilf(r1 - 0.5f));
+  return box;
+}
+
 // forward_pallas.pixel_bbox of the face, widened by m.widen, into s.bbox.
 __device__ __forceinline__ void pixel_bbox(const Mesh& m, Face& s) {
   float px[3], py[3];
@@ -141,21 +226,38 @@ __device__ __forceinline__ void pixel_bbox(const Mesh& m, Face& s) {
     py[k] = (1.0f - s.y[k] / safe_w) * m.half_h;
     unbounded |= s.w[k] <= 0.0f;
   }
-  // floor / ceil, then PyTorch's float -> int32 (__float2int_rz is
-  // cvt.rzi.s32.f32, as static_cast on the card), then the int32 sums.
-  const int col0 = wrap_add(
-      wrap_add(__float2int_rz(floorf(amin3(px) - 0.5f)), -1), -m.widen);
-  const int col1 = wrap_add(
-      wrap_add(__float2int_rz(ceilf(amax3(px) - 0.5f)), 1), m.widen);
-  const int row0 = wrap_add(
-      wrap_add(__float2int_rz(floorf(amin3(py) - 0.5f)), -1), -m.widen);
-  const int row1 = wrap_add(
-      wrap_add(__float2int_rz(ceilf(amax3(py) - 0.5f)), 1), m.widen);
   const int h1 = m.height - 1, w1 = m.width - 1;
-  s.bbox[0] = !s.valid ? kBig : unbounded ? 0 : clamp_to(row0, h1);
-  s.bbox[1] = !s.valid ? -1 : unbounded ? h1 : clamp_to(row1, h1);
-  s.bbox[2] = !s.valid ? kBig : unbounded ? 0 : clamp_to(col0, w1);
-  s.bbox[3] = !s.valid ? -1 : unbounded ? w1 : clamp_to(col1, w1);
+  int col0, col1, row0, row1;
+  int clip = kFront;
+  if (unbounded) {
+    // The clipped path: its bounds are in range, so plain int sums.
+    const ClipBox box = clipped_bounds(
+        Point{s.x[0], s.y[0], s.z[0], s.w[0]},
+        Point{s.x[1], s.y[1], s.z[1], s.w[1]},
+        Point{s.x[2], s.y[2], s.z[2], s.w[2]}, m.half_w, m.half_h);
+    clip = box.clip;
+    col0 = box.col0 - 1 - m.widen;
+    col1 = box.col1 + 1 + m.widen;
+    row0 = box.row0 - 1 - m.widen;
+    row1 = box.row1 + 1 + m.widen;
+  } else {
+    // floor / ceil, then PyTorch's float -> int32 (__float2int_rz is
+    // cvt.rzi.s32.f32, as static_cast on the card), then the int32 sums.
+    col0 = wrap_add(
+        wrap_add(__float2int_rz(floorf(amin3(px) - 0.5f)), -1), -m.widen);
+    col1 = wrap_add(
+        wrap_add(__float2int_rz(ceilf(amax3(px) - 0.5f)), 1), m.widen);
+    row0 = wrap_add(
+        wrap_add(__float2int_rz(floorf(amin3(py) - 0.5f)), -1), -m.widen);
+    row1 = wrap_add(
+        wrap_add(__float2int_rz(ceilf(amax3(py) - 0.5f)), 1), m.widen);
+  }
+  const bool whole = clip == kWhole;
+  const bool empty = !s.valid || clip == kCulled;
+  s.bbox[0] = empty ? kBig : whole ? 0 : clamp_to(row0, h1);
+  s.bbox[1] = empty ? -1 : whole ? h1 : clamp_to(row1, h1);
+  s.bbox[2] = empty ? kBig : whole ? 0 : clamp_to(col0, w1);
+  s.bbox[3] = empty ? -1 : whole ? w1 : clamp_to(col1, w1);
 }
 
 // forward_blocks._morton's spread: the low 16 bits to the even bits.

@@ -61,10 +61,14 @@ compare with it bitwise.
 Both passes build their schedule in one function, schedule, which takes
 the pass (Pass: FORWARD here, grad_blocks.GRADIENT) as data.  Under a
 torch.profiler session each stage records a span (utils/profiling):
-dirt.forward.table (K13: face table, Morton sort), dirt.forward.hits (K4;
-counter forward.hit_window, the windows' tiles), dirt.forward.runs (the
-schedule, K12; counters forward.visits and forward.dropped),
-dirt.forward.sweep and dirt.forward.finalize.
+dirt.forward.table (K13: face table, Morton sort; counters
+forward.clipped and forward.culled, the faces whose bbox the near/far clip
+gave and those it emptied, clip_counts), dirt.forward.hits (K4; counter
+forward.hit_window, the windows' tiles), dirt.forward.runs (the schedule,
+K12; counters forward.visits, forward.dropped and forward.budget, the
+fullest image's visits, kept and dropped, in BUDGET_UNIT of its slot
+budget), dirt.forward.sweep and dirt.forward.finalize.  The clip and budget
+counters are computed when the records are read, outside the steps.
 """
 
 import collections
@@ -90,6 +94,10 @@ EDGE_CULL = True
 
 def _cdiv(a, b):
     return -(-a // b)
+
+
+# The <pass>.budget counters' unit: parts per million of the slot budget.
+BUDGET_UNIT = 10 ** 6
 
 
 def slots_per_image(num_runs, num_items):
@@ -351,6 +359,18 @@ def table_layout(attrs):
     """The TableLayout of the table of vertex attributes `attrs` (None:
     the gradient's)."""
     return _GRADIENT_TABLE if attrs is None else _FORWARD_TABLE
+
+
+def clip_counts(vertices, faces, height, width):
+    """[B, 2] int64: each image's valid faces whose pixel bbox came from the
+    near/far clip (forward_pallas.CLIPPED) and those the clip emptied
+    (CULLED), by the plain rule, which K13's bboxes equal bit for bit."""
+    valid = geometry.face_setup(vertices, faces).valid
+    clip = forward_pallas.clip_status(geometry.gather_corners(vertices, faces),
+                                      height, width)
+    return torch.stack([(valid & (clip == forward_pallas.CLIPPED)).sum(-1),
+                        (valid & (clip == forward_pallas.CULLED)).sum(-1)],
+                       dim=-1)
 
 
 def face_table_plain(vertices, faces, attrs, height, width, rows, tile=None):
@@ -960,9 +980,11 @@ def schedule(pass_, vertices, faces, attrs, height, width, tile_h, tile_w,
              chunk, slots):
     """A pass's schedule for a batch, in spans dirt.<name>.table (the face
     table of vertex attributes `attrs`, or the gradient's for None, padded
-    to [B, NB*chunk, D] and Morton-sorted when SPATIAL: face_table),
-    dirt.<name>.hits (K4; counter <name>.hit_window) and dirt.<name>.runs
-    (counter <name>.dropped, and pass_.visits): returns (face_table [B*NB,
+    to [B, NB*chunk, D] and Morton-sorted when SPATIAL: face_table; the
+    forward's counters forward.clipped and forward.culled), dirt.<name>.hits (K4;
+    counter <name>.hit_window) and dirt.<name>.runs (counters
+    <name>.dropped, <name>.budget on the CSR runs, and pass_.visits):
+    returns (face_table [B*NB,
     chunk, D], the runs folded over the batch, dropped [B], order [B,
     NB*chunk] the table row each sorted row came from).
 
@@ -977,6 +999,12 @@ def schedule(pass_, vertices, faces, attrs, height, width, tile_h, tile_w,
         face_data, order = face_table(
             vertices, faces, attrs, height, width, num_blocks * chunk,
             (tile_h, tile_w) if SPATIAL else None)
+        if pass_ is FORWARD and profiling.recording():
+            # Both passes' tables clip the same faces: counted once.
+            clip = functools.cache(
+                lambda: clip_counts(vertices, faces, height, width))
+            profiling.count("forward.clipped", lambda: clip()[:, 0])
+            profiling.count("forward.culled", lambda: clip()[:, 1])
     with profiling.span(f"dirt.{pass_.name}.hits", face_data):
         hit = hit_matrix(face_data, pass_.bbox, num_blocks, chunk, tiles_y,
                          tiles_x, tile_h, tile_w, edge_cols=pass_.edge,
@@ -993,6 +1021,9 @@ def schedule(pass_, vertices, faces, attrs, height, width, tile_h, tile_w,
             *runs, dropped = build_runs(view, num_slots)
             if pass_.visits:
                 profiling.count(pass_.visits, runs[1])
+            counts = runs[1]
+            profiling.count(f"{pass_.name}.budget", lambda: (
+                (counts.sum(-1) + dropped).amax() * BUDGET_UNIT) // num_slots)
             offsets = (num_slots, 0, num_items)   # starts, counts, ids
         profiling.count(f"{pass_.name}.dropped", dropped)
         boff = torch.arange(batch, dtype=torch.int32,

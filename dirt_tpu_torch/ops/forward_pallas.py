@@ -41,12 +41,88 @@ def _pad_row(width_d, device=None):
     return row
 
 
+# Clip status of a face's pixel bbox (clip_status): every corner
+# at w > 0 (FRONT), or a corner at w <= 0 and the bbox the near/far clip
+# gives (CLIPPED), nothing left by the clip (CULLED, the empty bbox), or the
+# full screen (WHOLE: a point the clip leaves at w <= 0 or projected to a
+# non-finite pixel).
+FRONT, CLIPPED, CULLED, WHOLE = 0, 1, 2, 3
+# The clipped path's pixel bounds are clamped to +/- _CLIP_LIMIT before
+# they are converted to int32, far outside any image.
+_CLIP_LIMIT = float(1 << 24)
+
+
+def _clip_plane(points, live, far):
+    """One Sutherland-Hodgman step: the polygons of `points` [..., n, 4]
+    (x, y, z, w), their vertices the `live` [..., n] slots in slot order,
+    clipped to d >= 0, d = z + w (the near plane) or w - z (`far`).
+    Returns ([..., 2n, 4], [..., 2n]): slot 2s holds vertex s where it is
+    live and inside, slot 2s + 1 the crossing of the edge from vertex s to
+    the next live vertex, S + t (E - S) with t = d_S / (d_S - d_E), where
+    it is live and that edge crosses the plane."""
+    n = points.shape[-2]
+    z, w = points[..., 2], points[..., 3]
+    d = w - z if far else z + w
+    inside = d >= 0
+    slot = torch.arange(n, device=points.device)
+    nxt = slot.expand(live.shape).clone()
+    for k in range(n - 1, 0, -1):
+        ahead = (slot + k) % n
+        nxt = torch.where(live[..., ahead], ahead, nxt)
+    end = torch.take_along_dim(points, nxt[..., None], dim=-2)
+    d_end = torch.take_along_dim(d, nxt, dim=-1)
+    t = d / (d - d_end)
+    cross = points + t[..., None] * (end - points)
+    crosses = live & (inside != torch.take_along_dim(inside, nxt, dim=-1))
+    out = torch.stack([points, cross], dim=-2).flatten(-3, -2)
+    return out, torch.stack([live & inside, crosses], dim=-1).flatten(-2)
+
+
+def _clipped_bounds(corners, height, width):
+    """The near/far-clipped polygon of each face's clip-space `corners`
+    [..., 3, 4]: its projected pixel bounds (col0, col1, row0, row1: the
+    floored least and ceiled greatest pixel coordinate, before
+    pixel_bbox's slack) and its status, CULLED, WHOLE or CLIPPED."""
+    live = torch.ones(corners.shape[:-1], dtype=torch.bool,
+                      device=corners.device)
+    points, live = _clip_plane(corners, live, far=False)
+    points, live = _clip_plane(points, live, far=True)
+    x, y, w = points[..., 0], points[..., 1], points[..., 3]
+    px = (x / w + 1.0) * (width / 2.0)
+    py = (1.0 - y / w) * (height / 2.0)
+    whole = (live & ((w <= 0) | ~torch.isfinite(px)
+                     | ~torch.isfinite(py))).any(dim=-1)
+    culled = ~live.any(dim=-1)
+    status = torch.where(culled, CULLED, torch.where(whole, WHOLE, CLIPPED))
+    least = lambda p: torch.where(live, p, torch.inf).amin(dim=-1)
+    most = lambda p: torch.where(live, p, -torch.inf).amax(dim=-1)
+    to_int = lambda v: v.clamp(-_CLIP_LIMIT, _CLIP_LIMIT).to(torch.int32)
+    return (to_int(torch.floor(least(px) - 0.5)),
+            to_int(torch.ceil(most(px) - 0.5)),
+            to_int(torch.floor(least(py) - 0.5)),
+            to_int(torch.ceil(most(py) - 0.5)), status)
+
+
+def clip_status(corners, height, width):
+    """[B, F] int64: how pixel_bbox finds the bbox of each face of
+    clip-space `corners` [B, F, 3, 4]: FRONT, CLIPPED, CULLED or WHOLE."""
+    unbounded = (corners[..., 3] <= 0).any(dim=-1)
+    return torch.where(unbounded, _clipped_bounds(corners, height, width)[-1],
+                       FRONT)
+
+
 def pixel_bbox(corners, valid, height, width, widen=0):
     """The conservative pixel bbox (r0, r1, c0, c1), int32 [B, F], of the
     faces' clip-space `corners` [B, F, 3, 4]: +/- 1 pixel of rounding
-    slack and `widen` pixels more, clamped to the image.  Faces with any
-    w <= 0 may wrap through infinity, so they get the full screen; faces
-    that are not `valid` get the empty bbox (_BIG, -1, _BIG, -1)."""
+    slack and `widen` pixels more, clamped to the image.  Faces that are
+    not `valid` get the empty bbox (_BIG, -1, _BIG, -1).
+
+    A face with a corner at w <= 0 is clipped to -w <= z <= w (against z
+    + w >= 0, then w - z >= 0, _clipped_bounds), the only part of it that
+    covers a pixel: its bbox is that of the points left, projected; the
+    empty bbox where none is left; the full screen where one is left at w
+    <= 0 or projects to a non-finite pixel (clip_status).  Faces with
+    every w > 0 keep the projection of their corners."""
     w = corners[..., 3]
     safe_w = torch.where(w > 0, w, 1.0)
     px = (corners[..., 0] / safe_w + 1.0) * (width / 2.0)
@@ -55,15 +131,23 @@ def pixel_bbox(corners, valid, height, width, widen=0):
     lo = lambda p: torch.floor(p.amin(dim=-1) - 0.5).to(torch.int32) - 1
     hi = lambda p: torch.ceil(p.amax(dim=-1) - 0.5).to(torch.int32) + 1
     col0, col1, row0, row1 = lo(px), hi(px), lo(py), hi(py)
+    c0, c1, r0, r1, clip = _clipped_bounds(corners, height, width)
+    clip = torch.where(unbounded, clip, FRONT)
+    whole = clip == WHOLE
+    col0 = torch.where(unbounded, c0 - 1, col0)
+    col1 = torch.where(unbounded, c1 + 1, col1)
+    row0 = torch.where(unbounded, r0 - 1, row0)
+    row1 = torch.where(unbounded, r1 + 1, row1)
     if widen:
         col0, col1 = col0 - widen, col1 + widen
         row0, row1 = row0 - widen, row1 + widen
-    col0 = torch.where(unbounded, 0, col0.clamp(0, width - 1))
-    col1 = torch.where(unbounded, width - 1, col1.clamp(0, width - 1))
-    row0 = torch.where(unbounded, 0, row0.clamp(0, height - 1))
-    row1 = torch.where(unbounded, height - 1, row1.clamp(0, height - 1))
-    return (torch.where(valid, row0, _BIG), torch.where(valid, row1, -1),
-            torch.where(valid, col0, _BIG), torch.where(valid, col1, -1))
+    col0 = torch.where(whole, 0, col0.clamp(0, width - 1))
+    col1 = torch.where(whole, width - 1, col1.clamp(0, width - 1))
+    row0 = torch.where(whole, 0, row0.clamp(0, height - 1))
+    row1 = torch.where(whole, height - 1, row1.clamp(0, height - 1))
+    keep = valid & (clip != CULLED)
+    return (torch.where(keep, row0, _BIG), torch.where(keep, row1, -1),
+            torch.where(keep, col0, _BIG), torch.where(keep, col1, -1))
 
 
 def _face_table(vertices, vertex_colors, faces, height, width, pad_rows):

@@ -5,7 +5,7 @@ dirt_tpu/utils/profiling.py).
     (host activity, and the card's where there is one), written to
     `logdir` as Chrome trace JSON (Perfetto, chrome://tracing), with the
     port's own spans of that session merged in.
-  * ``span(name, tensor)`` and ``count(name, tensor)``: the port's stage
+  * ``span(name, tensor)`` and ``count(name, value)``: the port's stage
     spans and schedule counters, called at the stage boundaries of the
     blocks path (rasterise_ops, forward_blocks, grad_blocks).  They record
     exactly while a torch.profiler session is active; otherwise a span is
@@ -23,9 +23,11 @@ timing events (torch.Event, on the tensor's device) recorded on the
 current stream at entry and exit, taken from a pool: their
 elapsed time is the stream's time in the stage, its device work plus any
 wait for the host inside it.  A counter keeps a reference to a tensor the
-code already made and launches nothing; its sum is taken when the records
-are read, outside the steps.  Spans are not record_function ranges, so a
-profile still places each device operation in the caller's own ranges.
+code already made, or to a function that makes one from such tensors, and
+launches nothing; the function is called and the sum taken when the
+records are read, outside the steps.  Spans are not record_function
+ranges, so a profile still places each device operation in the caller's
+own ranges.
 Records go to a buffer of CAPACITY; past it the oldest are dropped.
 """
 
@@ -93,7 +95,8 @@ class _Recorder:
             record.stream_ms = start.elapsed_time(end)
             record._events = None
             self.events[start.device] += (start, end)
-        for name, tensor in record._pending:
+        for name, value in record._pending:
+            tensor = value() if callable(value) else value
             record.counters[name] = (record.counters.get(name, 0)
                                      + int(tensor.sum()))
         record._pending.clear()
@@ -150,15 +153,16 @@ def recording():
     return _profiler._is_profiler_enabled
 
 
-def count(name, tensor):
-    """Adds tensor.sum(), taken when the records are read, to the counter
-    `name` of the innermost span open on this thread, while a
-    torch.profiler session is active and a span is open."""
+def count(name, value):
+    """Adds the sum of `value`, a tensor or a function of no arguments that
+    returns one, taken (and the function called) when the records are
+    read, to the counter `name` of the innermost span open on this thread,
+    while a torch.profiler session is active and a span is open."""
     if not _profiler._is_profiler_enabled:
         return
     stack = _RECORDER.stack()
     if stack:
-        stack[-1]._pending.append((name, tensor))
+        stack[-1]._pending.append((name, value))
 
 
 def records():

@@ -6,9 +6,11 @@ elsewhere.  On the card, run them without the JAX test configuration:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 The checks are chip_smoke.py's, at small shapes: the face tables (K13,
-as bits, on a 4 x 512^2 65,536-face scene and edge rows at 3, 6 and 10
-channels, and the blocks step with them against the plain tables; CPU
-models in tests/test_torch_face_table.py), the hit plane, the CSR
+as bits, on a 4 x 512^2 65,536-face scene, edge rows at 3, 6 and 10
+channels, camera-crossing soups and the 65,536-face cylinder with the
+camera inside it, and the blocks step with them against the plain tables;
+CPU models in tests/test_torch_face_table.py), the inside cylinder's
+schedules dropping nothing, the hit plane, the CSR
 runs (K12; tests/test_torch_build_runs.py holds it over densities,
 orientations and budgets), the sweeps' states (the slot sweep K5b's and
 the resident sweep K5's also
@@ -73,6 +75,36 @@ def test_face_table(device):
     # 6 and 10 and in the gradient's layout.
     checked = chip_smoke.check_tables(chip_smoke.table_cases(device, 4))
     assert len(checked) == 6
+
+
+@pytest.mark.parametrize("scene", ["soup3", "soup4", "inside"])
+def test_face_table_on_crossing_scenes(device, scene):
+    # K13 == the plain path bit for bit where faces cross the camera plane
+    # (their bboxes the near/far clip's): camera-crossing soups and the
+    # 65,536-face cylinder with the camera inside it at 4 x 512^2, both
+    # layouts, sorted and in face order.
+    if scene == "inside":
+        _, clip, colors, faces, _ = chip_smoke.bench_scene(
+            4, 512, 8192, device, distance=chip_smoke.CROSSING_DISTANCE)
+        size = 512
+    else:
+        _, clip, colors, faces, _ = chip_smoke.crossing_scene(
+            device, batch=4, size=128, num_faces=2048, seed=int(scene[-1]))
+        size = 128
+    rows = faces.shape[1]
+    checked = chip_smoke.check_tables({
+        f"{scene} forward": (clip, faces, colors, size, size, rows),
+        f"{scene} gradient": (clip, faces, None, size, size, rows)})
+    assert len(checked) == 2
+
+
+def test_inside_cylinder_schedules_drop_nothing(device):
+    # The 65,536-face cylinder with the camera inside it at 4 x 512^2:
+    # both schedules keep every visit, under their default budgets.
+    scene = chip_smoke.bench_scene(4, 512, 8192, device,
+                                   distance=chip_smoke.CROSSING_DISTANCE)
+    for name, (dropped, share) in chip_smoke.budget_shares(scene).items():
+        assert max(dropped) == 0 and share < 1.0, (name, dropped, share)
 
 
 def test_blocks_step_with_plain_tables(device):

@@ -4,6 +4,11 @@ Both packages read the same seeded numpy scenes.  The per-tile packings
 (_pack_faces, _pack_grad_faces) must equal dirt_tpu's bit for bit at its
 tile shapes: the port keeps row indices into one face table where
 dirt_tpu copies the rows per tile, so the gathered rows are compared.
+On the camera-crossing scene the port clips the bboxes of faces with a
+corner at w <= 0 where dirt_tpu gives them the screen: there its table
+equals dirt_tpu's on every other face and column, those bboxes hold the
+pixels their faces cover (tests/clip_bbox.py), and its packing equals
+dirt_tpu's packing of the port's table.
 The dense forward (kernel K7's plain version) is held against dirt_tpu's
 dense forward in Pallas interpret mode: winner maps, vertex ids and
 dropped counts equal, pixels, barycentrics and clip w within atol=1e-4,
@@ -33,6 +38,8 @@ from dirt_tpu_torch.ops import (backward, dispatch, forward_dense,
                                 forward_pallas, grad_dense, grad_tables)
 from dirt_tpu_torch.ops.reference import RasterAux
 from dirt_tpu_torch.utils import convert
+
+import clip_bbox
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -92,7 +99,7 @@ def _close(a, b, name):
 
 @pytest.mark.parametrize("cut", [False, True])
 @pytest.mark.parametrize("scene", sorted(SCENES))
-def test_pack_faces_matches_jax(scene, cut):
+def test_pack_faces_matches_jax(scene, cut, monkeypatch):
     # cut: one 16-slot chunk per tile, fewer than the hits of most tiles.
     s = SCENES[scene]()
     batch, h, w, _ = s["background"].shape
@@ -101,15 +108,32 @@ def test_pack_faces_matches_jax(scene, cut):
     chunk = 16 if cut else jforward_dense.CHUNK
     nc = 1 if cut else _cdiv(nf, chunk)
     ty, tx = _cdiv(h, th), _cdiv(w, tw)
-    want_rows, want_counts, want_dropped = jax.vmap(functools.partial(
-        jforward_pallas._pack_faces, height=h, width=w, num_chunks=nc,
-        tiles_y=ty, tiles_x=tx, chunk=chunk, tile_h=th, tile_w=tw))(
-        s["vertices"], s["colors"], s["faces"])
     _, v, c, f = _torch(s)
     face_data, face_ids, counts, dropped = forward_pallas._pack_faces(
         v, c, f, h, w, nc, ty, tx, chunk, th, tw)
     rows = torch.stack([face_data[b][face_ids[b].long()]
                         for b in range(batch)])
+    crossing = clip_bbox.unbounded(v, f)
+    if crossing.any():
+        bbox = (20, 21, 22, 23)
+        want_table = jax.vmap(functools.partial(
+            jforward_pallas._face_table, height=h, width=w,
+            pad_rows=face_data.shape[1] - nf))(
+            s["vertices"], s["colors"], s["faces"])
+        clip_bbox.assert_table_parity(face_data, want_table, bbox, v, f)
+        clip_bbox.assert_contained(
+            v, f, [face_data[:, :nf, col] for col in bbox], h, w,
+            only=crossing)
+    pack = functools.partial(
+        jforward_pallas._pack_faces, height=h, width=w, num_chunks=nc,
+        tiles_y=ty, tiles_x=tx, chunk=chunk, tile_h=th, tile_w=tw)
+    images = (s["vertices"], s["colors"], s["faces"])
+    if crossing.any():
+        want_rows, want_counts, want_dropped = clip_bbox.packed_on(
+            face_data, jforward_pallas, "_face_table", pack, *images,
+            monkeypatch=monkeypatch)
+    else:
+        want_rows, want_counts, want_dropped = jax.vmap(pack)(*images)
     np.testing.assert_array_equal(
         np.asarray(want_rows).reshape(rows.shape), rows.numpy())
     np.testing.assert_array_equal(
@@ -120,7 +144,7 @@ def test_pack_faces_matches_jax(scene, cut):
 
 @pytest.mark.parametrize("cut", [False, True])
 @pytest.mark.parametrize("scene", ["soup", "crossing"])
-def test_pack_grad_faces_matches_jax(scene, cut):
+def test_pack_grad_faces_matches_jax(scene, cut, monkeypatch):
     s = SCENES[scene]()
     batch, h, w, _ = s["background"].shape
     nf = s["faces"].shape[1]
@@ -129,15 +153,32 @@ def test_pack_grad_faces_matches_jax(scene, cut):
         th, tw, chunk = 16, 32, 8      # one 8-slot chunk: the cap cuts
     nc = 1 if cut else _cdiv(nf, chunk)
     ty, tx = _cdiv(h, th), _cdiv(w, tw)
-    want_rows, want_counts, want_orig = jax.vmap(functools.partial(
-        jgrad_tables._pack_grad_faces, height=h, width=w, num_chunks=nc,
-        tiles_y=ty, tiles_x=tx, chunk=chunk, tile_h=th, tile_w=tw))(
-        s["vertices"], s["faces"])
     _, v, _, f = _torch(s)
     face_data, face_ids, counts, sorted_orig = grad_tables._pack_grad_faces(
         v, f, h, w, nc, ty, tx, chunk, th, tw)
     rows = torch.stack([face_data[b][face_ids[b].long()]
                         for b in range(batch)])
+    crossing = clip_bbox.unbounded(v, f)
+    if crossing.any():
+        bbox = grad_tables._BBOX
+        want_table = jax.vmap(functools.partial(
+            jgrad_tables._grad_face_table, height=h, width=w,
+            pad_rows=face_data.shape[1] - nf))(s["vertices"], s["faces"])
+        clip_bbox.assert_table_parity(face_data, want_table, bbox, v, f)
+        # Widened a pixel for the gradient's dilation.
+        clip_bbox.assert_contained(
+            v, f, [face_data[:, :nf, col] for col in bbox], h, w, dilate=1,
+            only=crossing)
+    pack = functools.partial(
+        jgrad_tables._pack_grad_faces, height=h, width=w, num_chunks=nc,
+        tiles_y=ty, tiles_x=tx, chunk=chunk, tile_h=th, tile_w=tw)
+    images = (s["vertices"], s["faces"])
+    if crossing.any():
+        want_rows, want_counts, want_orig = clip_bbox.packed_on(
+            face_data, jgrad_tables, "_grad_face_table", pack, *images,
+            monkeypatch=monkeypatch)
+    else:
+        want_rows, want_counts, want_orig = jax.vmap(pack)(*images)
     np.testing.assert_array_equal(
         np.asarray(want_rows).reshape(rows.shape), rows.numpy())
     np.testing.assert_array_equal(

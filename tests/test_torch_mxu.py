@@ -3,7 +3,12 @@
 Both packages start from the same forward residuals (dirt_tpu's reference
 forward, handed across as numpy).  The band packing (_pack_grad_bands)
 and the bf16 hi/mid/lo value planes must equal dirt_tpu's bit for bit
-(dirt_tpu pads each band to 128 lanes; the real pixels are compared).
+(dirt_tpu pads each band to 128 lanes; the real pixels are compared);
+on the camera-crossing scene, where the port clips the bboxes of faces
+with a corner at w <= 0 and dirt_tpu gives them the screen, the bands
+are dirt_tpu's hits-first packing (grad_tables._pack_grad_faces, a tile
+a band) of the port's gradient table, whose rows equal dirt_tpu's on
+every other face and hold what those faces cover (tests/clip_bbox.py).
 The gradients (kernel K10's plain version: three f32 matmuls per band
 and chunk) are held against dirt_tpu's grad_mxu in Pallas interpret mode
 within max |a - b| / max(max |a|, 1) <= 3e-6 (tests/test_grad_kernels.py's
@@ -23,11 +28,14 @@ import torch
 from dirt_tpu.ops import backward as jbackward
 from dirt_tpu.ops import dispatch as jdispatch
 from dirt_tpu.ops import grad_mxu as jgrad_mxu
+from dirt_tpu.ops import grad_tables as jgrad_tables
 import dirt_tpu_torch
-from dirt_tpu_torch.ops import (backward, dispatch, grad_mxu,
+from dirt_tpu_torch.ops import (backward, dispatch, grad_mxu, grad_tables,
                                 prepass_fused)
 from dirt_tpu_torch.ops.reference import RasterAux
 from dirt_tpu_torch.utils import meshes
+
+import clip_bbox
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -133,11 +141,37 @@ def test_pack_grad_bands_matches_jax(cases, monkeypatch, scene, cut):
     batch, h, w, _ = c.pixels.shape
     nc = 1 if cut else _cdiv(c.jf.shape[1], 64)
     bands = _cdiv(h, 16)
-    want = jax.vmap(functools.partial(
-        jgrad_mxu._pack_grad_bands, height=h, width=w, num_chunks=nc,
-        num_bands=bands))(c.jv, c.jf)
     face_ids, counts, sorted_orig = grad_mxu._pack_grad_bands(
         c.v, c.f, h, w, nc, bands)
+    crossing = clip_bbox.unbounded(c.v, c.f)
+    if crossing.any():
+        # The port's gradient table: its rows are the bands' row bounds.
+        nf = c.f.shape[1]
+        table = grad_tables._grad_face_table(c.v, c.f, h, w,
+                                             max(nc * 64, nf) - nf)
+        want_rows = np.asarray(jax.vmap(functools.partial(
+            jgrad_tables._grad_face_table, height=h, width=w,
+            pad_rows=0))(c.jv, c.jf))[..., :2]
+        rows = table[:, :nf, :2].numpy()
+        np.testing.assert_array_equal(rows[~crossing], want_rows[~crossing])
+        clip_bbox.assert_contained(
+            c.v, c.f, [table[:, :nf, col] for col in grad_tables._BBOX], h,
+            w, dilate=1, only=crossing)
+        # dirt_tpu's hits-first packing of that table into bands: tiles a
+        # band high and the image wide.
+        pack = functools.partial(
+            jgrad_tables._pack_grad_faces, height=h, width=w, num_chunks=nc,
+            tiles_y=bands, tiles_x=1, chunk=64, tile_h=16, tile_w=w)
+        band_rows, band_counts, band_orig = clip_bbox.packed_on(
+            table, jgrad_tables, "_grad_face_table", pack, c.jv, c.jf,
+            monkeypatch=monkeypatch)
+        face_col = np.asarray(band_rows)[..., 4]
+        want = (np.where(face_col < 0, -3, face_col), band_counts,
+                band_orig)
+    else:
+        want = jax.vmap(functools.partial(
+            jgrad_mxu._pack_grad_bands, height=h, width=w, num_chunks=nc,
+            num_bands=bands))(c.jv, c.jf)
     np.testing.assert_array_equal(
         np.asarray(want[0]).reshape(face_ids.shape), face_ids.numpy())
     np.testing.assert_array_equal(np.asarray(want[1]).reshape(batch, -1),

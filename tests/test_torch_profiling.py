@@ -133,19 +133,23 @@ def test_the_span_tree_under_a_profiler(recorder, deferred):
                for r in spans)
     counters = {r.name: set(r.counters) for r in spans if r.counters}
     assert counters == {
+        "dirt.forward.table": {"forward.clipped", "forward.culled"},
         "dirt.forward.hits": {"forward.hit_window"},
-        "dirt.forward.runs": {"forward.visits", "forward.dropped"},
+        "dirt.forward.runs": {"forward.visits", "forward.dropped",
+                              "forward.budget"},
         "dirt.backward.hits": {"backward.hit_window"},
-        "dirt.backward.runs": {"backward.dropped"}}
+        "dirt.backward.runs": {"backward.dropped", "backward.budget"}}
 
 
 def _hand_counts(hit, num_slots):
-    """(visits, dropped) of a [B, R, I] hit matrix under `num_slots`
-    slots an image, by hand: every hit is a visit, the schedule keeps
-    num_slots of them an image."""
+    """(visits, dropped, budget) of a [B, R, I] hit matrix under
+    `num_slots` slots an image, by hand: every hit is a visit, the
+    schedule keeps num_slots of them an image; budget is the fullest
+    image's visits in parts per million of the slots."""
     per_image = hit.reshape(hit.shape[0], -1).sum(dim=1).tolist()
     kept = [min(n, num_slots) for n in per_image]
-    return sum(kept), sum(n - k for n, k in zip(per_image, kept))
+    return (sum(kept), sum(n - k for n, k in zip(per_image, kept)),
+            max(per_image) * 10 ** 6 // num_slots)
 
 
 def table_and_hits(module, pass_, *scene_args):
@@ -188,14 +192,19 @@ def test_counters_equal_the_schedules_sums(recorder, monkeypatch, slots):
         for name, value in r.counters.items():
             counters[name] = counters.get(name, 0) + value
 
-    visits, dropped = _hand_counts(hit, forward_blocks.slots_per_image(
-        *hit.shape[1:]))
-    _, grad_dropped = _hand_counts(grad_hit, forward_blocks.slots_per_image(
-        *grad_hit.shape[2:0:-1]))
+    visits, dropped, budget = _hand_counts(
+        hit, forward_blocks.slots_per_image(*hit.shape[1:]))
+    _, grad_dropped, grad_budget = _hand_counts(
+        grad_hit, forward_blocks.slots_per_image(*grad_hit.shape[2:0:-1]))
+    # Seen from 3 units, no corner reaches w <= 0: nothing is clipped.
     assert counters == {"forward.visits": visits, "forward.dropped": dropped,
                         "backward.dropped": grad_dropped,
                         "forward.hit_window": windows[0],
-                        "backward.hit_window": windows[1]}
+                        "backward.hit_window": windows[1],
+                        "forward.budget": budget,
+                        "backward.budget": grad_budget,
+                        "forward.clipped": 0, "forward.culled": 0}
+    assert (grad_budget > 10 ** 6) == (grad_dropped > 0)
     assert visits == int(forward[2].sum())
     assert dropped == int(forward[4].sum())
     assert dropped == 0 and (grad_dropped > 0) == (slots > 0)
