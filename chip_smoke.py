@@ -4,7 +4,7 @@
 Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --sweeps-of OTHER_CHECKOUT   # phase 5: sweeps, K11
+    python3 chip_smoke.py --sweeps-of OTHER_CHECKOUT   # phase 5: sweeps, K1, K11
 
 It drives the port's paths on the bench scene (16 x 256^2, the 512-face
 Gouraud cylinder, loss sum(pixels * weights)) and checks them phase by
@@ -36,7 +36,8 @@ failure:
      run's rows zero; K1 and K5b each give equal states in two calls on
      every scene, and on runs of 0, 1, 121 and more visits than their
      visit list (the staging's two halves, several pieces) K1 and K5b ==
-     their plain versions bit for bit and K5b == K1; K8 and K5 each give
+     their plain versions bit for bit and K5b == K1, K1 also with every
+     run cut into pieces of 1 and 2 visits; K8 and K5 each give
      equal results in two calls; on the 8192-face image K8 and K7 on
      lists of 0, 1, 301 and 3,728 faces (more than their visit list and
      their staging area hold) == their plain versions bit for bit and in
@@ -169,7 +170,11 @@ failure:
      projection's half-width 0.05 for 0.25: many busy tiles) and the
      large one (K1, K5b, K7, K8; K5 on the bench, zoom and 1,536-face
      scenes; K4 at dilate 0 and 1 on all four), profiler device ms and
-     CUDA-event ms; K4 alone on both packs' tables of the 65,536-face
+     CUDA-event ms; K1 alone on the 65,536-face cylinder at 4 and 32 x
+     512^2 and from inside it at 32 x 512^2 (time_k1_cells: the runs'
+     lengths and the longest block, == its plain version bit for bit,
+     device ms beside its bound; with --sweeps-of, on the other tree); K4
+     alone on both packs' tables of the 65,536-face
      cylinder at 4 and 32 x 512^2 beside its bound; K12 on both packs'
      hits of that cylinder at 32 x 512^2 (check_build_runs: == its plain
      version at the pack's budget and a truncating one, both
@@ -1069,6 +1074,11 @@ def check_sweep_walk(tag, info):
     if not torch.equal(k1, fb.raster_sweep_plain(*csr)):
         fail(f"{tag}: on the edge runs raster_sweep differs from its plain "
              f"version")
+    # Every listed run cut into pieces of one and two visits.
+    for piece in (1, 2):
+        if not torch.equal(fb.raster_sweep(*csr, piece=piece), k1):
+            fail(f"{tag}: on the edge runs raster_sweep in pieces of "
+                 f"{piece} visits differs from its plain version")
     if not torch.equal(k5b, k1) or not torch.equal(
             fb.slot_sweep_plain(*slot), k1):
         fail(f"{tag}: on the edge runs slot_sweep or its plain version "
@@ -1083,9 +1093,9 @@ def check_sweep_walk(tag, info):
             and covered):
         fail(f"{tag}: edge runs: the {empty} runs without a visit are not "
              f"background, or the 121-visit run covers nothing")
-    phase("kernels", f"{tag}: K1 and K5b on runs of {lengths} visits and "
-          f"{empty} of none: == their plain versions, K5b == K1, empty "
-          f"runs background OK")
+    phase("kernels", f"{tag}: K1 (also in pieces of 1 and 2 visits) and "
+          f"K5b on runs of {lengths} visits and {empty} of none: == their "
+          f"plain versions, K5b == K1, empty runs background OK")
 
 
 def check_list_walk(tag, scene, lengths=(3728, 301, 1)):
@@ -1326,6 +1336,60 @@ def time_hit_cells(device, card_line):
         del scene
         phase("timing", f"K4 at {batch}x512^2x65536f: " + "; ".join(parts)
               + f" on {card_line}")
+
+
+def time_k1_cells(device, card_line, check=True):
+    """K1 alone on the benchmark's mesh (the 65,536-face cylinder at 512^2)
+    at 4 and 32 views from the distant camera and at 32 from inside the
+    cylinder (INSIDE_CELL's camera): the forward runs' lengths (busy runs,
+    the longest, their 99th percentile, runs over SWEEP_PIECE where the
+    tree has it) and the longest block (sweep_chain), profiler device ms
+    of K1's launches and CUDA-event ms, beside its bound (the table, the
+    runs' ids and the state, each once, or the face tests); where `check`,
+    the state == raster_sweep_plain's bit for bit."""
+    from dirt_tpu_torch.ops import forward_blocks as fb
+    piece = getattr(fb, "SWEEP_PIECE", None)
+    th, tw, chunk = fb.TILE_H, fb.TILE_W, fb.CHUNK
+    for batch, distance in ((4, 3.0), (32, 3.0), (32, 0.3)):
+        background, clip, colors, faces, _ = bench_scene(
+            batch, 512, 8192, device, distance=distance)
+        channels = background.shape[-1]
+        tiles_x = _cdiv(512, tw)
+        table, starts, counts, block_ids, _ = fb.pack(
+            clip, colors, faces, 512, 512, th, tw, chunk)
+        args = (table, starts, counts, block_ids, channels, 512, 512,
+                tiles_x, tiles_x * _cdiv(512, th), th, tw)
+        del background, clip, colors, faces
+        run = lambda: fb.raster_sweep(*args)
+        busy = counts[counts > 0].float()
+        visits = int(counts.sum())
+        nbytes = (_nbytes(table, starts, counts) + visits * 4
+                  + counts.shape[0] * (channels + 9) * th * tw * 4)
+        bound_ms, bound_by = bound(nbytes, visits * chunk * th * tw
+                                   * OPS_FACE_TEST)
+        split = ("" if piece is None else
+                 f", {int((counts > piece).sum())} over {piece}, the "
+                 f"longest block {int(fb.sweep_chain(counts))}")
+        same = ""
+        if check:
+            state = run()
+            torch.cuda.synchronize()
+            if not (torch.equal(state, fb.raster_sweep_plain(*args))
+                    and torch.equal(run(), state)):
+                fail(f"K1 at {batch}x512^2 (camera at {distance}) differs "
+                     f"from its plain version or between two calls")
+            same = ", == plain and in two calls"
+            del state
+        phase("timing", f"K1 raster_sweep at {batch}x512^2x65536f, camera "
+              f"at {distance}: {busy.numel()} busy runs of "
+              f"{counts.numel()}, visits {visits}, longest run "
+              f"{int(busy.max())}, p99 {float(torch.quantile(busy, 0.99)):.1f}"
+              f"{split}; {device_time(run, 'raster_sweep'):.4f} ms device, "
+              f"{time_ms(run, STEPS):.4f} ms CUDA events, bound "
+              f"{bound_ms:.4f} ms ({bound_by}: {nbytes} bytes){same} on "
+              f"{card_line}")
+        del args, table, starts, counts, block_ids
+        torch.cuda.empty_cache()
 
 
 def check_build_runs(device, card_line):
@@ -3479,9 +3543,10 @@ def sweep_scenes(scene, zoom_scene, large_scene, scene_1536):
 
 
 def sweeps_of(tree):
-    """`--sweeps-of TREE`: time_sweeps and time_accum alone, on the
-    dirt_tpu_torch package of checkout TREE (another commit's: two commits
-    compared on one card by the same timing code)."""
+    """`--sweeps-of TREE`: time_sweeps, time_k1_cells (unchecked) and
+    time_accum alone, on the dirt_tpu_torch package of checkout TREE
+    (another commit's: two commits compared on one card by the same timing
+    code)."""
     sys.path.insert(0, os.path.abspath(tree))
     import dirt_tpu_torch
     if not os.path.abspath(dirt_tpu_torch.__file__).startswith(
@@ -3495,6 +3560,7 @@ def sweeps_of(tree):
         bench_scene(16, 256, 64, device, right=ZOOM_RIGHT),
         bench_scene(1, 256, 1024, device),
         bench_scene(16, 256, 192, device)), card_line)
+    time_k1_cells(device, card_line, check=False)
     time_accum(device, card_line)
 
 
@@ -3690,6 +3756,7 @@ def main():
     time_sweeps(sweep_scenes(scene, zoom_scene, large_scene, scene_1536),
                 card_line)
     time_hit_cells(device, card_line)
+    time_k1_cells(device, card_line)
     check_build_runs(device, card_line)
     check_face_table(device, card_line)
     time_accum(device, card_line)

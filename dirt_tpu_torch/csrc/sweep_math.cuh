@@ -225,6 +225,16 @@ struct Pixel {
   float xg, yg, row, col;
 };
 
+// The Pixel of image row `row`, column `col` of a height x width image;
+// forward_dense.pixel_ndc: ((col + 0.5) * (2/W) - 1, 1 - (row + 0.5) *
+// (2/H)), sx = 2/W and sy = 2/H.
+__device__ __forceinline__ Pixel pixel_at(int row, int col, int height,
+                                          int width, float sx, float sy) {
+  return Pixel{((float)col + 0.5f) * sx - 1.0f,
+               1.0f - ((float)row + 0.5f) * sy,
+               (float)min(row, height - 1), (float)min(col, width - 1)};
+}
+
 // Tests the staged face at `face` (row number `row` of the table) at the
 // thread's pixel if its pixel bbox holds the pixel; the face's other
 // columns are loaded only then.
@@ -401,11 +411,7 @@ __device__ __forceinline__ void sweep_run(
   const int p = threadIdx.x - g * pix;
   const int row = row0 + p / tile_w;
   const int col = col0 + p % tile_w;
-  // forward_dense.pixel_ndc: ((col + 0.5) * (2/W) - 1,
-  // 1 - (row + 0.5) * (2/H)).
-  const Pixel px{((float)col + 0.5f) * sx - 1.0f,
-                 1.0f - ((float)row + 0.5f) * sy,
-                 (float)min(row, height - 1), (float)min(col, width - 1)};
+  const Pixel px = pixel_at(row, col, height, width, sx, sy);
   Winner w;
   for (;;) {
     faces.sweep(list, n, stage, ss, g, px, w);

@@ -26,7 +26,9 @@ The schedule is the JAX package's fused-CSR one:
     cumsum of the counts, and the ids stored from the starts; the CPU
     runs the plain argsort and scatter, build_runs_plain);
   * the sweep (raster_sweep, kernel K1 on CUDA) walks each tile's run and
-    keeps the lexicographic (depth, original index) winner per pixel;
+    keeps the lexicographic (depth, original index) winner per pixel; K1
+    cuts a run of more than SWEEP_PIECE visits into pieces, a thread
+    block each, and merges their winners in piece order (sweep_plan);
   * forward_dense.finalize does the one division and the aux assembly.
 
 Two further schedules compute the same state bit for bit:
@@ -67,8 +69,10 @@ gave and those it emptied, clip_counts), dirt.forward.hits (K4; counter
 forward.hit_window, the windows' tiles), dirt.forward.runs (the schedule,
 K12; counters forward.visits, forward.dropped and forward.budget, the
 fullest image's visits, kept and dropped, in BUDGET_UNIT of its slot
-budget), dirt.forward.sweep and dirt.forward.finalize.  The clip and budget
-counters are computed when the records are read, outside the steps.
+budget), dirt.forward.sweep (K1; counter forward.chain, the most visits
+one of its blocks sweeps, sweep_chain) and dirt.forward.finalize.  The
+clip, budget and chain counters are computed when the records are read,
+outside the steps.
 """
 
 import collections
@@ -683,9 +687,12 @@ def hit_matrix(face_data, bbox_cols, num_blocks, chunk,
 # K1: the sweep
 # --------------------------------------------------------------------------
 
+# K1 (csrc/raster_sweep.cu): where a run can be split, a plan launch (the
+# extra pieces' slots, the tickets zeroed) before the sweep, in one call
+# of the entry point (RASTER_SWEEP.launches counts one a call).
 RASTER_SWEEP = _cuda.Kernel(
     "raster_sweep", "dirt_raster_sweep",
-    [_cuda.ptr] * 5 + [_cuda.i32] * 8 + [_cuda.f32] * 2 + [_cuda.i32] * 8
+    [_cuda.ptr] * 9 + [_cuda.i32] * 10 + [_cuda.f32] * 2 + [_cuda.i32] * 8
     + [_cuda.ptr],
     replaces="dirt_tpu/ops/forward_blocks.py:576",
     source="raster_sweep.cu")
@@ -710,6 +717,13 @@ SLOT_WINDOW = 96
 # threads, so shared memory does not cut the blocks an SM runs at once.
 SM_SHARED_BYTES = 233472
 SM_THREADS = 2048
+
+# The visits a K1 block sweeps at most (raster_sweep.cu's kSweepPiece): a
+# longer run is cut into pieces of consecutive visits, a block each, whose
+# partial winners the run's last block merges in piece order; the value
+# by trials of 1 to 256 at the benchmark's 32 x 512^2, from outside and
+# inside the cylinder (PERF.md).
+SWEEP_PIECE = 32
 
 SweepShape = collections.namedtuple(
     "SweepShape", "groups threads cap region list smem")
@@ -793,30 +807,82 @@ def raster_sweep_plain(face_table, starts, counts, block_ids, channels,
                                      tile_w, face_table.shape[1])
 
 
+def split_slots(slots, piece=SWEEP_PIECE):
+    """The extra pieces an image of `slots` CSR slots can give K1 at most:
+    its runs' visits sum to at most `slots`, and a run of n visits gives
+    ceil(n / piece) - 1 <= (n - 1) // piece."""
+    return max(0, slots - 1) // piece
+
+
+def sweep_plan(counts, num_tiles, slots, piece=SWEEP_PIECE):
+    """raster_sweep.cu's plan, the plain version: for counts [B*T] of
+    images of `slots` CSR slots, (first [B*T], map [B*E]) with E =
+    split_slots(slots, piece): run bt's pieces 1 .. ceil(n / piece) - 1
+    take the consecutive slots from first[bt] in run order from its
+    image's first slot b * E, and map[slot] = bt, -1 where unused."""
+    extra_slots = split_slots(slots, piece)
+    extra = torch.where(counts > piece, (counts - 1) // piece, 0).long()
+    per_image = extra.reshape(-1, num_tiles)
+    excl = per_image.cumsum(-1) - per_image
+    base = torch.arange(per_image.shape[0], device=counts.device)[:, None]
+    first = (excl + base * extra_slots).reshape(-1)
+    slot = (torch.repeat_interleave(first, extra)
+            + torch.arange(int(extra.sum()), device=counts.device)
+            - torch.repeat_interleave(extra.cumsum(0) - extra, extra))
+    plan = torch.full((per_image.shape[0] * extra_slots,), -1,
+                      dtype=torch.int32, device=counts.device)
+    plan[slot] = torch.repeat_interleave(
+        torch.arange(counts.shape[0], dtype=torch.int32,
+                     device=counts.device), extra)
+    return first.int(), plan
+
+
+def sweep_chain(counts, piece=SWEEP_PIECE):
+    """The most visits one block of K1 sweeps (counter forward.chain):
+    min(n, piece) over the runs' counts."""
+    return counts.clamp(max=piece).amax()
+
+
 def raster_sweep(face_table, starts, counts, block_ids, channels,
-                 height, width, tiles_x, num_tiles, tile_h, tile_w):
+                 height, width, tiles_x, num_tiles, tile_h, tile_w,
+                 piece=SWEEP_PIECE):
     """K1 wrapper: raster_sweep_plain's state, by the CUDA kernel for CUDA
-    tensors and by the plain version for CPU tensors.
+    tensors and by the plain version for CPU tensors.  The kernel's blocks
+    sweep at most `piece` visits each (SWEEP_PIECE; the tests cut runs
+    finer); counter forward.chain (sweep_chain).
 
     face_table [B*NB, chunk, D] f32; starts, counts [B*T] and block_ids
     [B*S] int32, batch-folded (ids index the flat table)."""
+    profiling.count("forward.chain", lambda: sweep_chain(counts, piece))
     if not _cuda.on_cuda(face_table, starts, counts, block_ids):
         return raster_sweep_plain(face_table, starts, counts, block_ids,
                                   channels, height, width, tiles_x,
                                   num_tiles, tile_h, tile_w)
+    if piece < 1:
+        raise ValueError(f"a K1 block sweeps at least one visit, not {piece}")
     runs = starts.shape[0]
     chunk, width_d = face_table.shape[1], face_table.shape[2]
     pix = tile_h * tile_w
+    images = runs // num_tiles
+    slots = images * split_slots(block_ids.shape[0] // max(images, 1), piece)
     shape = _sweep_args(face_table, pix)
-    state = torch.empty(runs, channels + 9, pix, device=face_table.device)
+    device = face_table.device
+    state = torch.empty(runs, channels + 9, pix, device=device)
+    # The plan's first slots and tickets a run, then its slot map; the
+    # extra pieces' partial winners (depth, index, row) a pixel.
+    plan = torch.empty(2 * runs + slots, dtype=torch.int32, device=device)
+    partials = torch.empty(slots, 3, pix, device=device)
     RASTER_SWEEP(
         _cuda.check("face_table", face_table, torch.float32),
         _cuda.check("starts", starts, torch.int32, (runs,)),
         _cuda.check("counts", counts, torch.int32, (runs,)),
         _cuda.check("block_ids", block_ids, torch.int32),
         _cuda.check("state", state, torch.float32),
-        runs, num_tiles, tiles_x, tile_h, tile_w, chunk, width_d, channels,
-        2.0 / width, 2.0 / height, height, width, *shape, _cuda.stream())
+        plan[:runs].data_ptr(), plan[2 * runs:].data_ptr(),
+        plan[runs:2 * runs].data_ptr(), partials.data_ptr(),
+        runs, slots, piece, num_tiles, tiles_x, tile_h, tile_w, chunk,
+        width_d, channels, 2.0 / width, 2.0 / height, height, width, *shape,
+        _cuda.stream())
     return state
 
 

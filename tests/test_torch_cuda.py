@@ -15,7 +15,9 @@ runs (K12; tests/test_torch_build_runs.py holds it over densities,
 orientations and budgets), the sweeps' states (the slot sweep K5b's and
 the resident sweep K5's also
 equal to K1's; K1 and K5b also on runs of 0, 1, 121 and more visits than
-their visit list, on exact depth ties, each equal to itself in two
+their visit list, K1 with its runs cut into pieces of SWEEP_PIECE, 1 and
+2 visits on the 65,536-face cylinder at 32 x 512^2 from outside and inside
+it and at 10 and 6 channels, on exact depth ties, each equal to itself in two
 calls; K8 and K7 on lists of 0, 1, 301 and 3,728 faces, K5 with every
 group empty, zoomed and at 1,536 faces; K4 on both packs' tables at
 dilate 0 and 1 and a ragged cut), the fused sweep-and-shade outputs and
@@ -510,6 +512,62 @@ def test_sweeps_twice_and_against_each_other(device, scene):
         first, second = run(), run()
         assert torch.equal(first, want)
         assert torch.equal(second, first)
+
+
+def _cylinder_sweep(device, batch, distance, channels=3):
+    """raster_sweep's arguments on the benchmark's mesh (the 65,536-face
+    cylinder at 512^2, chip_smoke.bench_scene) at `batch` views from
+    `distance`, with `channels` vertex attributes (the colours, repeated
+    and scaled past 3)."""
+    from dirt_tpu_torch.ops import forward_blocks
+    _, clip, colors, faces, _ = chip_smoke.bench_scene(
+        batch, 512, 8192, device, distance=distance)
+    attrs = torch.cat([colors * (1.0 + k) for k in range(-(-channels // 3))],
+                      dim=-1)[..., :channels].contiguous()
+    tiles_x = 512 // 16
+    table, starts, counts, ids, dropped = forward_blocks.pack(
+        clip, attrs, faces, 512, 512, 16, 16, 32)
+    assert int(dropped.sum()) == 0
+    return (table, starts, counts, ids, channels, 512, 512, tiles_x,
+            tiles_x * tiles_x, 16, 16)
+
+
+def _check_split(args, pieces):
+    """K1 with its runs cut into pieces of each of `pieces` visits ==
+    raster_sweep_plain bit for bit, in two calls on the same tensors (the
+    run's tickets start from zero again)."""
+    from dirt_tpu_torch.ops import forward_blocks
+    want = forward_blocks.raster_sweep_plain(*args)
+    assert bool((want[:, -1] >= 0).any())
+    for piece in pieces:
+        first = forward_blocks.raster_sweep(*args, piece=piece)
+        second = forward_blocks.raster_sweep(*args, piece=piece)
+        torch.cuda.synchronize()
+        assert torch.equal(first, want), piece
+        assert torch.equal(second, want), piece
+
+
+@pytest.mark.parametrize("distance", [3.0, 0.3], ids=["distant", "inside"])
+def test_k1_splits_long_runs_at_the_benchmark_shape(device, distance):
+    # 32 x 512^2 and 65,536 faces from the distant camera (cell F: runs of
+    # up to ~740 visits on the few tiles the cylinder covers) and from
+    # inside the cylinder (cell H: every pixel covered): K1 cuts every run
+    # longer than SWEEP_PIECE, or than 1 or 2 visits, into pieces and
+    # merges them; the state == the plain version's bit for bit.
+    from dirt_tpu_torch.ops import forward_blocks
+    args = _cylinder_sweep(device, 32, distance)
+    assert int(args[2].max()) > forward_blocks.SWEEP_PIECE
+    _check_split(args, (forward_blocks.SWEEP_PIECE, 1, 2))
+
+
+@pytest.mark.parametrize("channels,batch", [(10, 4), (6, 32)])
+def test_k1_splits_at_other_channel_counts(device, channels, batch):
+    # Cell E's 10 attribute channels at its 4 views, and cell G's 6 at
+    # its 32: the partial winners sit in the state slice's first and last
+    # two rows, whatever the channels.
+    from dirt_tpu_torch.ops import forward_blocks
+    _check_split(_cylinder_sweep(device, batch, 3.0, channels),
+                 (forward_blocks.SWEEP_PIECE, 1, 2))
 
 
 @pytest.mark.parametrize("tile,chunk", [

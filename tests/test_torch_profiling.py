@@ -137,6 +137,7 @@ def test_the_span_tree_under_a_profiler(recorder, deferred):
         "dirt.forward.hits": {"forward.hit_window"},
         "dirt.forward.runs": {"forward.visits", "forward.dropped",
                               "forward.budget"},
+        "dirt.forward.sweep": {"forward.chain"},
         "dirt.backward.hits": {"backward.hit_window"},
         "dirt.backward.runs": {"backward.dropped", "backward.budget"}}
 
@@ -208,6 +209,26 @@ def test_counters_equal_the_schedules_sums(recorder, monkeypatch, slots):
     assert visits == int(forward[2].sum())
     assert dropped == int(forward[4].sum())
     assert dropped == 0 and (grad_dropped > 0) == (slots > 0)
+
+
+@pytest.mark.parametrize("piece", [1, 2, forward_blocks.SWEEP_PIECE])
+def test_chain_counts_the_longest_block_of_the_sweep(recorder, monkeypatch,
+                                                    piece):
+    # forward.chain: the most visits one K1 block sweeps, the longest run
+    # cut at the piece.
+    sweep = forward_blocks.raster_sweep
+    monkeypatch.setattr(forward_blocks, "raster_sweep",
+                        lambda *args: sweep(*args, piece=piece))
+    background, clip, colors, faces = scene(segments=32)
+    with profile(activities=[ProfilerActivity.CPU]):
+        forward_blocks.rasterise_batch(background, clip, colors, faces)
+    counts = forward_blocks.pack(clip, colors, faces, SIZE, SIZE,
+                                 forward_blocks.TILE_H, forward_blocks.TILE_W,
+                                 forward_blocks.CHUNK)[2]
+    chain = [r.counters for r in profiling.records()
+             if r.name == "dirt.forward.sweep"]
+    assert chain == [{"forward.chain": min(int(counts.max()), piece)}]
+    assert int(counts.max()) > 2
 
 
 def test_a_small_slot_budget_drops_in_both_schedules(recorder, monkeypatch):

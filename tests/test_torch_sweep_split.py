@@ -23,6 +23,7 @@ version's, which walks every face in order, bit for bit.  Here:
 The kernels themselves run on the card (tests/test_torch_cuda.py).
 """
 
+import functools
 import itertools
 import pathlib
 import re
@@ -72,6 +73,13 @@ def _sweep_inputs(name):
             tiles_x, num_tiles, TILE, TILE)
 
 
+@functools.cache
+def _reference(name):
+    """The scene's sweep inputs and raster_sweep_plain's state of them."""
+    args = _sweep_inputs(name)
+    return args, forward_blocks.raster_sweep_plain(*args)
+
+
 def _group_states(args, groups):
     """Each face group's state: group g sweeps faces g, g + S, ... of every
     visit of its run, as sweep_run deals them."""
@@ -101,8 +109,7 @@ def _combine(states, order):
 
 @pytest.mark.parametrize("name", list(SCENES))
 def test_face_groups_combine_to_the_plain_state(name):
-    args = _sweep_inputs(name)
-    want = forward_blocks.raster_sweep_plain(*args)
+    args, want = _reference(name)
     groups = forward_blocks.sweep_shape(TILE * TILE, CHUNK, H100_OPTIN).groups
     assert groups == 2
     states = _group_states(args, groups)
@@ -131,10 +138,9 @@ def test_winners_lie_in_their_bbox(name):
     # and column clamped to the image, as the bbox is).  That keeps the
     # plain state wherever each winner's bbox holds its pixel: the culled
     # faces are a subset that still holds the winner.
-    args = _sweep_inputs(name)
+    args, want = _reference(name)
     table, _, _, _, channels, height, width, tiles_x, num_tiles, th, tw = \
         args
-    want = forward_blocks.raster_sweep_plain(*args)
     runs, ns, pix = want.shape
     batch = runs // num_tiles
     rows = table.reshape(batch, -1, table.shape[-1])
@@ -156,6 +162,127 @@ def test_winners_lie_in_their_bbox(name):
     assert int(covered.sum()) > 100
     assert bool(((box[:, 0] <= r) & (r <= box[:, 1]) & (box[:, 2] <= c)
                  & (c <= box[:, 3])).all())
+
+
+PIECES = (1, 2, forward_blocks.SWEEP_PIECE)
+
+
+def _piece_states(args, piece, first, plan):
+    """Each piece's state as raster_sweep.cu's blocks sweep it: piece k of
+    run bt (k = 0, or slot first[bt] + k - 1 of the plan, which maps to bt)
+    sweeps visits [k * piece, (k + 1) * piece) of the run through
+    forward_dense.sweep_plain; runs without a piece k stay background."""
+    table, starts, counts, block_ids, *geometry = args
+    extra = torch.bincount(plan[plan >= 0].long(), minlength=counts.shape[0])
+    pieces = torch.where(counts > 0, 1 + extra, 0)
+    states = []
+    for k in range(int(pieces.max())):
+        if k:
+            # The plan's slot of each run's piece k holds the run.
+            has = pieces > k
+            slot = first[has].long() + k - 1
+            assert torch.equal(plan[slot], has.nonzero()[:, 0].int())
+        n = torch.where(pieces > k, (counts - k * piece).clamp(max=piece), 0)
+        states.append(forward_blocks.raster_sweep_plain(
+            table, starts + k * piece, n.int(), block_ids, *geometry))
+    return states
+
+
+def _edge_args(args, piece):
+    """Runs of piece, piece + 1 and 2 * piece + 1 visits of image 0's face
+    blocks, ascending and repeating, on a one-image strip of three 16 x 16
+    tiles (the same table rows, sampled at the strip's pixel centres)."""
+    table, _, counts, _, channels, _, _, _, num_tiles, _, _ = args
+    blocks = table.shape[0] // (counts.shape[0] // num_tiles)
+    lengths = (piece, piece + 1, 2 * piece + 1)
+    ids = torch.cat([torch.arange(n) % blocks for n in lengths]).int()
+    n = torch.tensor(lengths, dtype=torch.int32)
+    starts = (n.cumsum(0) - n).int()
+    return (table[:blocks].contiguous(), starts, n, ids, channels, TILE,
+            3 * TILE, 3, 3, TILE, TILE)
+
+
+@pytest.mark.parametrize("piece", PIECES)
+@pytest.mark.parametrize("name", list(SCENES))
+def test_pieces_merge_to_the_plain_state(name, piece):
+    # raster_sweep.cu cuts a run of n > piece visits into pieces of at most
+    # `piece` consecutive visits and merges their winners in piece order
+    # by the (depth, original index) test.  That order is total among
+    # covered fragments of one image, so the merged state equals the plain
+    # state bit for bit in piece order and in any other: on runs of piece,
+    # piece + 1 and 2 * piece + 1 visits, and on the scene's own runs
+    # (shorter than SWEEP_PIECE: cut at 1 and 2).
+    scene, scene_want = _reference(name)
+    edge = _edge_args(scene, piece)
+    cases = [(edge, forward_blocks.raster_sweep_plain(*edge))]
+    if piece < int(scene[2].max()):
+        cases.append((scene, scene_want))
+    for args, want in cases:
+        table, starts, counts, block_ids, *geometry = args
+        runs, num_tiles = counts.shape[0], geometry[4]
+        first, plan = forward_blocks.sweep_plan(
+            counts, num_tiles, block_ids.shape[0] // (runs // num_tiles),
+            piece)
+        states = _piece_states(args, piece, first, plan)
+        assert len(states) == -(-int(counts.max()) // piece)
+        assert torch.equal(_combine(states, range(len(states))), want)
+        orders = (itertools.permutations(range(len(states)))
+                  if len(states) <= 3 else
+                  [range(len(states))[::-1],
+                   torch.randperm(len(states),
+                                  generator=torch.Generator().manual_seed(
+                                      piece)).tolist()])
+        for order in orders:
+            assert torch.equal(_combine(states, list(order)), want), order
+        assert bool((want[:, -1] >= 0).any())
+    if name == "ties":
+        # The lower index, the first copy, wins every exact tie.
+        assert bool((want[:, -1][want[:, -1] >= 0] < 60).all())
+
+
+def _plan_loop(counts, num_tiles, slots, piece):
+    """The plan and the longest chain, one run at a time."""
+    extra_slots = max(0, slots - 1) // piece
+    images = len(counts) // num_tiles
+    first, plan, chain = [], [-1] * (images * extra_slots), 0
+    for b in range(images):
+        slot = b * extra_slots
+        for bt in range(b * num_tiles, (b + 1) * num_tiles):
+            n = counts[bt]
+            first.append(slot)
+            pieces = [min(piece, n - v) for v in range(0, n, piece)]
+            chain = max([chain] + pieces)
+            for _ in pieces[1:]:
+                plan[slot] = bt
+                slot += 1
+        assert slot <= (b + 1) * extra_slots
+    return first, plan, chain
+
+
+@pytest.mark.parametrize("piece", (1, 2, 7, forward_blocks.SWEEP_PIECE))
+def test_sweep_plan_against_a_loop(piece):
+    # Images whose runs fill their slot budget exactly (the most extra
+    # pieces the plan's slots must hold), partly, or not at all.
+    gen = torch.Generator().manual_seed(piece)
+    num_tiles, slots = 37, 700
+    images = []
+    for fill in (slots, slots // 3, 0):
+        cuts = torch.sort(torch.randint(0, fill + 1, (num_tiles - 1,),
+                                        generator=gen)).values
+        edges = torch.cat([torch.tensor([0]), cuts, torch.tensor([fill])])
+        images.append(edges[1:] - edges[:-1])
+    # A run of all the slots, then nothing.
+    images.append(torch.tensor([slots] + [0] * (num_tiles - 1)))
+    counts = torch.cat(images).int()
+    first, plan = forward_blocks.sweep_plan(counts, num_tiles, slots, piece)
+    want_first, want_plan, chain = _plan_loop(counts.tolist(), num_tiles,
+                                              slots, piece)
+    assert first.tolist() == want_first
+    assert plan.tolist() == want_plan
+    assert len(plan) == len(images) * forward_blocks.split_slots(slots,
+                                                                 piece)
+    assert int(forward_blocks.sweep_chain(counts, piece)) == chain
+    assert chain == min(piece, slots)
 
 
 def warp_bracket(keys, lo, hi, key, bracket):
@@ -313,7 +440,11 @@ def test_sweep_constants_mirror_the_kernels():
         assert "threads <= dirt::kSweepThreads" in kernel
         assert "dirt::kSweepBlocks>" in kernel and "<1024, 1>" in kernel
         assert "dirt::sweep_run(" in kernel
+    split = (REPO / "dirt_tpu_torch" / "csrc" / "raster_sweep.cu"
+             ).read_text()
+    assert re.search(rf"constexpr int kSweepPiece = "
+                     rf"{forward_blocks.SWEEP_PIECE};", split)
     assert forward_blocks.RASTER_SWEEP.argtypes.count(
-        forward_blocks._cuda.i32) == 16
+        forward_blocks._cuda.i32) == 18
     assert forward_blocks.SLOT_SWEEP.argtypes.count(
         forward_blocks._cuda.i32) == 17
